@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into its own shared
+library with a plain C interface, `_build/lib<name>-<hash>.so`, and loaded
+with ctypes. The hash covers the source and every header in `csrc/`, so an
+edited source is rebuilt; a library that exists is reused. All missing
+libraries are compiled in parallel, one `nvcc` process each. Building needs
+the CUDA toolkit (`nvcc` on PATH, under $CUDA_HOME or /usr/local/cuda); it
+happens at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("ntt", "blind_rotate")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def log_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.log"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, in parallel.
+    Returns the seconds spent; raises with the compiler's log on failure."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if not lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        tmp = BUILD_DIR / f".lib{name}-{os.getpid()}.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    failed = []
+    for name, tmp, proc in procs:
+        out, _ = proc.communicate()
+        log_path(name).write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if not lib_path(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str):
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"CUDA error {err} from {what}")
