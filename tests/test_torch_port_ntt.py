@@ -22,6 +22,17 @@ from tfhe_tpu_torch.ops import ntt_cuda
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several test processes side by side; the port's many
+    small tensor ops run fastest, and slow the other processes least, on
+    one intra-op thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines():
     n = 256

@@ -31,9 +31,22 @@ from tfhe_tpu.torus import mod_switch, negacyclic_monomial_rotate
 from tfhe_tpu_torch import _u64, convert
 from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch.core import bootstrap as tbt
+from tfhe_tpu_torch.models import integer as ti
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.rng import FheRng
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several test processes side by side; the port's many
+    small tensor ops run fastest, and slow the other processes least, on
+    one intra-op thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parents[1]
 N = 256
@@ -160,7 +173,9 @@ def test_degree_bookkeeping_and_luts_match_reference():
 def test_package_imports_no_jax():
     code = (
         "import sys, tfhe_tpu_torch.models.shortint, tfhe_tpu_torch.convert, "
-        "tfhe_tpu_torch.ops.ntt_cuda, tfhe_tpu_torch.ops.blind_rotate_cuda; "
+        "tfhe_tpu_torch.ops.ntt_cuda, tfhe_tpu_torch.ops.blind_rotate_cuda, "
+        "tfhe_tpu_torch.core.multibit, tfhe_tpu_torch.ops.multibit_cuda, "
+        "tfhe_tpu_torch.models.integer, tfhe_tpu_torch.parallel.dispatch; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -179,3 +194,11 @@ def test_entry_points_need_a_device_when_no_cuda():
         tsi.generate_lut(tp.TOY_SHORTINT, lambda v: v)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsi.trivial_encrypt(tp.TOY_SHORTINT, [1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsi.keygen(tp.TOY_SHORTINT, seed=0, multibit_group=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsi.keygen(tp.PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ti.trivial_radix(tp.TOY_SHORTINT, [1], 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ti.trivial_radix_bigint(tp.TOY_SHORTINT, [1], 8)

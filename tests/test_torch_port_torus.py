@@ -19,6 +19,17 @@ from tfhe_tpu_torch import torus as tt
 from tfhe_tpu_torch.convert import params_from_reference, u64_tensor
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several test processes side by side; the port's many
+    small tensor ops run fastest, and slow the other processes least, on
+    one intra-op thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand_u64(seed, shape):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 2**64, size=shape, dtype=np.uint64)

@@ -2,8 +2,9 @@
 
 The functions read the reference objects' fields as numpy arrays
 (`np.asarray`) and never import JAX or tfhe_tpu: a ClientKey / ServerKey
-of tfhe_tpu.models.shortint (classic keys) becomes the port's, bit for
-bit, so both packages can run on the same key material and ciphertexts.
+of tfhe_tpu.models.shortint (classic or multi-bit keys) becomes the
+port's, bit for bit, so both packages can run on the same key material
+and ciphertexts.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from tfhe_tpu_torch import _u64
 from tfhe_tpu_torch.core.bootstrap import BootstrapKey
 from tfhe_tpu_torch.core.keys import GlweSecretKey, LweSecretKey
 from tfhe_tpu_torch.core.lwe import KeyswitchKey
+from tfhe_tpu_torch.core.multibit import MultiBitBootstrapKey
 from tfhe_tpu_torch.models.shortint import ClientKey, ServerKey
 from tfhe_tpu_torch.params import GadgetParams, NoiseDistribution, ShortintParams
 
@@ -70,6 +72,16 @@ def bootstrap_key_from_reference(bsk, device="cpu") -> BootstrapKey:
     )
 
 
+def multibit_bootstrap_key_from_reference(bsk, device="cpu") -> MultiBitBootstrapKey:
+    return MultiBitBootstrapKey(
+        bsk_ntt=u32_tensor(bsk.bsk_ntt, device),
+        gadget=gadget_from_reference(bsk.gadget),
+        shift=int(bsk.shift),
+        group_size=int(bsk.group_size),
+        rot_table=None if bsk.rot_table is None else u32_tensor(bsk.rot_table, device),
+    )
+
+
 def keyswitch_key_from_reference(ksk, device="cpu") -> KeyswitchKey:
     return KeyswitchKey(
         ksk=u64_tensor(ksk.ksk, device),
@@ -79,8 +91,14 @@ def keyswitch_key_from_reference(ksk, device="cpu") -> KeyswitchKey:
 
 
 def server_key_from_reference(sk, device="cpu") -> ServerKey:
+    """Classic or multi-bit: a bootstrap key with a `group_size` is a
+    tfhe_tpu MultiBitBootstrapKey."""
+    if hasattr(sk.bsk, "group_size"):
+        bsk = multibit_bootstrap_key_from_reference(sk.bsk, device)
+    else:
+        bsk = bootstrap_key_from_reference(sk.bsk, device)
     return ServerKey(
-        bsk=bootstrap_key_from_reference(sk.bsk, device),
+        bsk=bsk,
         ksk=keyswitch_key_from_reference(sk.ksk, device),
         params=params_from_reference(sk.params),
     )

@@ -24,8 +24,7 @@
 // intermediate in shared memory; the butterflies' bank conflicts and the
 // scattered folded-layout reads are what a later, faster version removes.
 //
-// Garner constants (u64): [0..3] primes, [4..7] inv[i], [8..23] pmod[i][j]
-// at 8 + 4 i + j, [24..27] mixed-radix digits of prod/2, [28] prod mod 2^64.
+// Garner constants: see garner_u64 in ntt_device.cuh.
 
 #include "ntt_device.cuh"
 
@@ -91,28 +90,7 @@ __global__ void k3_cmux(const int64_t* __restrict__ acc_in, int64_t* __restrict_
     }
     // Garner: canonical residues -> signed CRT value mod 2^64, << shift
     for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-      uint64_t v[4];
-      v[0] = res[i];
-      for (int q = 1; q < nprimes; ++q) {
-        const uint64_t pq = gc[q];
-        uint64_t tq = v[q - 1];
-        for (int j = q - 2; j >= 0; --j) {
-          tq = (tq * gc[8 + 4 * q + j] + v[j]) % pq;
-        }
-        const uint64_t rq = res[(size_t)q * 2 * n + i];
-        const uint64_t d = (rq + pq - tq % pq) % pq;
-        v[q] = d * gc[4 + q] % pq;
-      }
-      uint64_t x = v[nprimes - 1];
-      for (int j = nprimes - 2; j >= 0; --j) x = v[j] + gc[j] * x;
-      bool neg = v[nprimes - 1] > gc[24 + nprimes - 1];
-      bool eq = v[nprimes - 1] == gc[24 + nprimes - 1];
-      for (int j = nprimes - 2; j >= 0; --j) {
-        neg = neg || (eq && v[j] > gc[24 + j]);
-        eq = eq && v[j] == gc[24 + j];
-      }
-      if (neg) x -= gc[28];
-      acc[i] += x << shift;
+      acc[i] += garner_u64(res + i, (size_t)2 * n, nprimes, gc) << shift;
     }
     __syncthreads();
   }

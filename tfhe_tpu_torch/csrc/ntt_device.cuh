@@ -1,6 +1,7 @@
-// Device functions shared by the NTT kernels (ntt.cu) and the fused CMux
-// kernel (blind_rotate.cu): u32 Shoup arithmetic mod a prime p < 2^30 and
-// in-shared-memory negacyclic NTTs of one block.
+// Device functions shared by the NTT kernels (ntt.cu), the fused CMux
+// kernel (blind_rotate.cu) and the multi-bit group-step kernel
+// (multibit.cu): u32 Shoup arithmetic mod a prime p < 2^30, in-shared-memory
+// negacyclic NTTs of one block, and the Garner reconstruction.
 //
 // Forward: Cooley-Tukey over the bit-reversed powers of psi (the primitive
 // 2N-th root), natural order in, bit-reversed order out: slot k holds
@@ -92,6 +93,40 @@ __device__ void ntt_inv_rows(uint32_t* buf, int rows, int logn, const uint32_t* 
     buf[idx] = mul_shoup(buf[idx], ninv, ninv_s, p);
   }
   __syncthreads();
+}
+
+// Garner: the canonical residues of one coefficient, res[q * stride] for
+// prime q < nprimes, -> the signed CRT value mod 2^64, in native u64
+// arithmetic (mixed-radix digits, Horner, then a lexicographic compare of
+// the digits with those of prod/2 for the negative range). Called by K3
+// (blind_rotate.cu) and K4 (multibit.cu) on their residue rows.
+//
+// Constants gc (u64): [0..3] primes, [4..7] inv[i], [8..23] pmod[i][j] at
+// 8 + 4 i + j, [24..27] mixed-radix digits of prod/2, [28] prod mod 2^64
+// (ops/blind_rotate_cuda.garner_consts).
+__device__ __forceinline__ uint64_t garner_u64(const uint32_t* res, size_t stride, int nprimes,
+                                               const uint64_t* __restrict__ gc) {
+  uint64_t v[4];
+  v[0] = res[0];
+  for (int q = 1; q < nprimes; ++q) {
+    const uint64_t pq = gc[q];
+    uint64_t tq = v[q - 1];
+    for (int j = q - 2; j >= 0; --j) {
+      tq = (tq * gc[8 + 4 * q + j] + v[j]) % pq;
+    }
+    const uint64_t rq = res[(size_t)q * stride];
+    const uint64_t d = (rq + pq - tq % pq) % pq;
+    v[q] = d * gc[4 + q] % pq;
+  }
+  uint64_t x = v[nprimes - 1];
+  for (int j = nprimes - 2; j >= 0; --j) x = v[j] + gc[j] * x;
+  bool neg = v[nprimes - 1] > gc[24 + nprimes - 1];
+  bool eq = v[nprimes - 1] == gc[24 + nprimes - 1];
+  for (int j = nprimes - 2; j >= 0; --j) {
+    neg = neg || (eq && v[j] > gc[24 + j]);
+    eq = eq && v[j] == gc[24 + j];
+  }
+  return neg ? x - gc[28] : x;
 }
 
 __host__ __device__ inline int ntt_threads(int work) {

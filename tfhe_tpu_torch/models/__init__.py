@@ -1,1 +1,1 @@
-"""Schemes built on the PBS: shortint."""
+"""Schemes built on the PBS: shortint, radix integers."""

@@ -1,5 +1,5 @@
-"""Shortint: the PBS-refreshed small-integer block, classic keys
-(counterpart of tfhe_tpu/models/shortint.py).
+"""Shortint: the PBS-refreshed small-integer block, over classic or
+multi-bit keys (counterpart of tfhe_tpu/models/shortint.py).
 
 Ciphertexts live under the big (extracted) key; each programmable
 bootstrap keyswitches down to the small key, blind-rotates and extracts
@@ -33,6 +33,11 @@ from tfhe_tpu_torch.core.lwe import (
     gen_keyswitch_key,
     trivial_lwe,
 )
+from tfhe_tpu_torch.core.multibit import (
+    MultiBitBootstrapKey,
+    gen_multibit_bootstrap_key,
+    multibit_keyswitch_pbs,
+)
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.params import ShortintParams
 from tfhe_tpu_torch.rng import FheRng
@@ -56,7 +61,7 @@ class ClientKey:
 
 @dataclasses.dataclass
 class ServerKey:
-    bsk: BootstrapKey
+    bsk: Union[BootstrapKey, MultiBitBootstrapKey]
     ksk: KeyswitchKey
     params: ShortintParams
 
@@ -79,17 +84,34 @@ class Ciphertext:
         return self.ct.shape[:-1]
 
 
-def keygen(params: ShortintParams, seed: int = 0, device=None) -> tuple[ClientKey, ServerKey]:
-    """Classic keys for `params` on `device` (default "cuda")."""
-    if "MULTI_BIT_GROUP_" in params.name:
-        raise NotImplementedError("multi-bit keys are not ported yet")
+def multibit_group_of(params: ShortintParams) -> int | None:
+    """The group size a MULTI_BIT_GROUP_<g>_ parameter-set name implies."""
+    if "MULTI_BIT_GROUP_" not in params.name:
+        return None
+    return int(params.name.split("MULTI_BIT_GROUP_")[1].split("_")[0])
+
+
+def keygen(
+    params: ShortintParams, seed: int = 0, multibit_group: int | None = None, device=None
+) -> tuple[ClientKey, ServerKey]:
+    """Keys for `params` on `device` (default "cuda"). multibit_group=g
+    builds a multi-bit bootstrap key (core/multibit.py) instead of the
+    classic one; a MULTI_BIT_GROUP_<g>_ set implies g. apply_lut
+    dispatches on the key type. Draw order: GLWE key, small key, BSK, KSK."""
+    if multibit_group is None:
+        multibit_group = multibit_group_of(params)
     dev = _device.resolve(device)
     engine = get_folded_engine(params.polynomial_size, dev)
     rng = FheRng(seed, dev)
     glwe_sk = gen_glwe_secret_key(rng, params.glwe_dimension, params.polynomial_size)
     small_sk = gen_lwe_secret_key(rng, params.lwe_dimension)
     big_sk = glwe_to_lwe_secret_key(glwe_sk)
-    bsk = gen_bootstrap_key(small_sk, glwe_sk, params.pbs, rng, params.glwe_noise, engine)
+    if multibit_group is None:
+        bsk = gen_bootstrap_key(small_sk, glwe_sk, params.pbs, rng, params.glwe_noise, engine)
+    else:
+        bsk = gen_multibit_bootstrap_key(
+            small_sk, glwe_sk, params.pbs, multibit_group, rng, params.glwe_noise, engine
+        )
     ksk = gen_keyswitch_key(big_sk, small_sk, params.ks, rng, params.lwe_noise)
     return (
         ClientKey(glwe_key=glwe_sk, lwe_key=small_sk, params=params),
@@ -167,10 +189,15 @@ def generate_lut_bivariate(params: ShortintParams, f: Callable, device=None) -> 
 
 
 def apply_lut(sk: ServerKey, c: Ciphertext, lut: torch.Tensor, out_degree: int) -> Ciphertext:
-    """The PBS atom: keyswitch down + programmable bootstrap with `lut`."""
+    """The PBS atom: keyswitch down + programmable bootstrap with `lut`.
+    Dispatches on the key type: multi-bit keys run the n/g-step
+    aggregated rotation."""
     p = sk.params
     engine = engine_for(p, sk.device)
-    out = keyswitch_pbs(c.ct, lut, sk.bsk, sk.ksk, engine)
+    if isinstance(sk.bsk, MultiBitBootstrapKey):
+        out = multibit_keyswitch_pbs(c.ct, lut, sk.bsk, sk.ksk, engine)
+    else:
+        out = keyswitch_pbs(c.ct, lut, sk.bsk, sk.ksk, engine)
     return Ciphertext(ct=out, params=p, degree=out_degree, noise_level=1)
 
 

@@ -130,16 +130,23 @@ def cmux_steps(acc, exps, bsk_ntt, rot_table, engine, base_log: int, shift: int)
 cmux_steps.launches = 0
 
 
-def one_step_plain(acc, rv, rs, bv, bs, engine, base_log: int, shift: int) -> torch.Tensor:
-    """One CMux step, the JAX `_one_step` in PyTorch. acc (B, 2, N) int64;
-    rv/rs (B, P, N) the gathered NTT(X^a - 1) rows and Shoup companions;
-    bv/bs (4P, N) BSK rows ordered (prime, d, c)."""
-    # level-1 decomposition: state = (x + 2^(63-B)) >> (64-B) on the hi plane
+def level1_digits_forward_plain(acc, engine, base_log: int) -> torch.Tensor:
+    """Level-1 gadget digits of the accumulator rows, forward-transformed:
+    acc (B, 2, N) int64 -> (B, 2, P, N) u32 residues on int64 lanes, as
+    the JAX kernels compute them on the hi plane: state =
+    (x + 2^(63-B)) >> (64-B), balanced to [-2^(B-1), 2^(B-1))."""
     hi = _u64.srl(acc, 32)
     dh2 = (hi + (1 << (64 - base_log - 1 - 32))) & MASK32
     state = dh2 >> (64 - base_log - 32)
     d = state - torch.where(state >= (1 << (base_log - 1)), 1 << base_log, 0)
-    fd = _u64.u32(engine.forward_small_plain(d))  # (B, 2, P, N)
+    return _u64.u32(engine.forward_small_plain(d))
+
+
+def one_step_plain(acc, rv, rs, bv, bs, engine, base_log: int, shift: int) -> torch.Tensor:
+    """One CMux step, the JAX `_one_step` in PyTorch. acc (B, 2, N) int64;
+    rv/rs (B, P, N) the gathered NTT(X^a - 1) rows and Shoup companions;
+    bv/bs (4P, N) BSK rows ordered (prime, d, c)."""
+    fd = level1_digits_forward_plain(acc, engine, base_log)  # (B, 2, P, N)
     bv, bs = _u64.u32(bv), _u64.u32(bs)
     rv, rs = _u64.u32(rv), _u64.u32(rs)
     res = []

@@ -1,4 +1,4 @@
-"""Parameter sets of the classic shortint path.
+"""Parameter sets of the shortint path, classic and multi-bit.
 
 A copy of the dataclasses and named sets of `tfhe_tpu/params.py` that the
 port runs (the port imports nothing of the JAX package). Field names,
@@ -116,6 +116,25 @@ PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = ShortintParams(
     carry_modulus=4,
 )
 
+# Multi-bit PBS sets (tfhe-rs PARAM_MULTI_BIT_GROUP_{2,3}_MESSAGE_2_CARRY_2_
+# KS_PBS_TUNIFORM_2M128 analogs): the classic set's GLWE, N, noise and
+# message layout; GROUP_3 raises n 880 -> 882 so the group size divides it.
+# GROUP_4 is the JAX package's own extension past tfhe-rs' GROUP_2/3.
+# keygen reads the group size g from the name.
+PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = dataclasses.replace(
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    name="PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+)
+PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = dataclasses.replace(
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    name="PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+    lwe_dimension=882,
+)
+PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = dataclasses.replace(
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    name="PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
+)
+
 # Toy sets: no security, exact algorithms, for tests at small sizes.
 TOY_SHORTINT = ShortintParams(
     name="TOY_SHORTINT",
@@ -148,6 +167,9 @@ _REGISTRY = {
     p.name: p
     for p in [
         PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         TOY_SHORTINT,
         TOY_SHORTINT_NOISELESS,
         TOY_SHORTINT_CORPUS,
