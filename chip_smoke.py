@@ -20,7 +20,8 @@ drives, through the entry points a user calls, at full width:
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. It
 prints the card, build time, per-kernel times beside their bounds,
-keygen seconds, PBS/s, transfers/s, a `{"kernels": [...]}` line, and last
+keygen seconds, PBS/s, transfers/s, K4's time at 64, 128 and 512
+ciphertexts (`ms_by_batch`), a `{"kernels": [...]}` line, and last
 a `{"ok": true, "device": {...}}` line. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing a result.
 """
@@ -153,7 +154,7 @@ def main() -> int:
     ptxas = []
     for name in _build.SOURCES:
         for line in _build.log_path(name).read_text().splitlines() if _build.log_path(name).exists() else []:
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 ptxas.append(line.strip())
     print(f"build_s: {build_s:.3f} (" + "; ".join(ptxas) + ")", flush=True)
 
@@ -251,19 +252,21 @@ def main() -> int:
         brc.cmux_steps_plain(acc, exps, bsk, rot_table, eng, base_log, 11),
     )
     check(k3s_err == 0, f"K3 vs plain, 4 steps x 64 ciphertexts (err {k3s_err})")
-    # K4: one launch of 4 groups over 64 ciphertexts for each group size
+    # K4: one launch of 4 groups for each group size, at ragged batches of 1, 3
+    # and 64 ciphertexts (the grid holds one block per ciphertext and prime)
     x_table = mb.monomial_x_table(eng)
     k4s_err = {}
     for g in mbc.GROUP_SIZES:
-        a = rand_i32((4 * g, 64), 0, 2 * n)
         bsk = rand_key_rows((4, 1 << g, 2, 2))
-        k4s_err[g] = exact_err(
-            mbc.group_steps(acc, a, bsk, x_table, eng, base_log, 13, g),
-            mbc.group_steps_plain(acc, a, bsk, x_table, eng, base_log, 13, g),
-        )
-    check(all(e == 0 for e in k4s_err.values()), f"K4 vs plain, 4 groups x 64 ciphertexts (err {k4s_err})")
+        for nb in (1, 3, 64):
+            a = rand_i32((4 * g, nb), 0, 2 * n)
+            k4s_err[f"g{g}/{nb}ct"] = exact_err(
+                mbc.group_steps(acc[:nb], a, bsk, x_table, eng, base_log, 13, g),
+                mbc.group_steps_plain(acc[:nb], a, bsk, x_table, eng, base_log, 13, g),
+            )
+    check(all(e == 0 for e in k4s_err.values()), f"K4 vs plain, 4 groups x 1/3/64 ciphertexts (err {k4s_err})")
     del bsk, x_table
-    print(f"check K3 (64 ct, 4 steps) err {k3s_err}; K4 (64 ct, 4 groups) err by g {k4s_err}", flush=True)
+    print(f"check K3 (64 ct, 4 steps) err {k3s_err}; K4 (4 groups) err by g and batch {k4s_err}", flush=True)
 
     # -- path 1: the classic shortint path at full width ----------------------
     reset_counts()
@@ -376,19 +379,31 @@ def main() -> int:
     k4_err = exact_err(k4_out[:64], plain_out)
     check(k4_err == 0, f"K4 vs plain at the multi-bit path's shape, first 64 ct (err {k4_err})")
     groups = sk.bsk.n_groups
-    b, o = bound_ms(
-        rotation_bytes(BATCH, groups, sk.bsk.bsk_ntt.numel() * 4, g3, n_pr, n),
-        group_step_ops(BATCH, groups, g3, n_pr, n),
-    )
+    key_bytes = sk.bsk.bsk_ntt.numel() * 4
+
+    def k4_bound(nb):
+        return bound_ms(rotation_bytes(nb, groups, key_bytes, g3, n_pr, n), group_step_ops(nb, groups, g3, n_pr, n))
+
+    # the ERC20 carry chain launches K4 on 64-128 rows: time those batches too
+    ms_by_batch = {}
+    for nb in (64, 128):
+        acc_b, a_b = acc0[:nb].contiguous(), a_all[:, :nb].contiguous()
+        t_b = cuda_ms(lambda: mbc.group_steps(acc_b, a_b, *k4_args), 3)
+        ms_by_batch[str(nb)] = dict(zip(("ms", "bound_ms", "bound_by"), (t_b, *k4_bound(nb))))
+    b, o = k4_bound(BATCH)
+    ms_by_batch[str(BATCH)] = dict(ms=k4_ms, bound_ms=b, bound_by=o)
     kern["K4"] = dict(
         name="group_steps", route="cuda", source="tfhe_tpu_torch/csrc/multibit.cu",
         replaces="tfhe_tpu/ops/pallas_multibit.py:184",
         max_abs_err=max(k4_err, mb_pbs_err, *k4s_err.values()),
         ms=k4_ms, plain_ms=k4_plain_ms, plain_shape=f"64 ct x {groups} groups", bound_ms=b, bound_by=o,
         library_ms=None, path="multibit", shape=f"{BATCH} ct x {groups} groups (g={g3})",
+        ms_by_batch=ms_by_batch,
     )
-    print(f"K4 plain on 64 ct x {groups} groups: {k4_plain_ms:.1f} ms (kernel output equal, err {k4_err})",
-          flush=True)
+    print(f"K4 plain on 64 ct x {groups} groups: {k4_plain_ms:.1f} ms (kernel output equal, err {k4_err}); "
+          "K4 by batch: " + ", ".join(
+              f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']})" for nb, v in ms_by_batch.items()
+          ), flush=True)
     del small, acc0, a_all, k4_out, plain_out, ident, tri, prod
 
     # GROUP_4: keygen, 64 ciphertexts through the identity LUT
@@ -436,7 +451,8 @@ def main() -> int:
 
     # -- summary ----------------------------------------------------------------
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "equal", "ms",
-             "plain_ms", "plain_shape", "bound_ms", "bound_by", "library_ms", "path", "launches_by_path", "shape")
+             "plain_ms", "plain_shape", "bound_ms", "bound_by", "library_ms", "path", "launches_by_path", "shape",
+             "ms_by_batch")
     for key, k in kern.items():
         k["launches"] = paths[k["path"]][key]
         k["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}

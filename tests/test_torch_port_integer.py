@@ -178,7 +178,7 @@ def own():
 
 
 def _enc(ck, vals, nbits, seed):
-    return ti.encrypt_radix(ck, np.asarray(vals, dtype=np.uint64), nbits, FheRng(seed))
+    return ti.encrypt_radix(ck, np.asarray(vals, dtype=np.uint64), nbits, FheRng(seed, device="cpu"))
 
 
 def _dec(ck, c):
@@ -253,7 +253,7 @@ def test_scalar_ops_match_clear(own, op):
 def test_bigint_forms_and_neg(own):
     params, ck, sk = own
     big = [(1 << 127) + 12345, 3]
-    c = ti.encrypt_radix_bigint(ck, big, 128, FheRng(9))
+    c = ti.encrypt_radix_bigint(ck, big, 128, FheRng(9, device="cpu"))
     assert c.nblocks == 64 and ti.decrypt_radix_bigint(ck, c) == big
     t = ti.trivial_radix_bigint(params, big, 128, device="cpu")
     assert ti.decrypt_radix_bigint(ck, t) == big
@@ -280,7 +280,7 @@ def test_dispatcher_pads_and_routes(own):
         return multibit_programmable_bootstrap(keyswitch(cts, sk.ksk), lut, sk.bsk, engine)
 
     d = PbsDispatcher(run_batch, bucket_sizes=(4, 16))
-    rng = FheRng(13)
+    rng = FheRng(13, device="cpu")
     tickets = []
     for i, v in enumerate([0, 1, 2, 3, 7]):
         c = tsi.encrypt(ck, torch.tensor(v), rng)

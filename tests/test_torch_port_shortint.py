@@ -113,7 +113,7 @@ def own_keys():
 
 def test_own_keygen_ops_decrypt(own_keys):
     params, ck, sk = own_keys
-    rng = FheRng(8)
+    rng = FheRng(8, device="cpu")
     a_vals = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0])
     b_vals = torch.tensor([0, 0, 1, 1, 2, 3, 3, 2])
     a = tsi.encrypt(ck, a_vals, rng)
@@ -137,7 +137,7 @@ def test_loop_branch_decrypts():
     """Level-2 gadget (TOY_SHORTINT): the external-product loop path."""
     ck, sk = tsi.keygen(tp.TOY_SHORTINT, seed=9, device="cpu")
     a_vals = torch.tensor([0, 1, 2, 3])
-    a = tsi.encrypt(ck, a_vals, FheRng(10))
+    a = tsi.encrypt(ck, a_vals, FheRng(10, device="cpu"))
     out = tsi.apply_function(sk, a, lambda v: (v * v) % 4)
     assert torch.equal(tsi.decrypt(ck, out), (a_vals * a_vals) % 4)
 

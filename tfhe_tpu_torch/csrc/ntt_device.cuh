@@ -1,7 +1,8 @@
 // Device functions shared by the NTT kernels (ntt.cu), the fused CMux
 // kernel (blind_rotate.cu) and the multi-bit group-step kernel
 // (multibit.cu): u32 Shoup arithmetic mod a prime p < 2^30, in-shared-memory
-// negacyclic NTTs of one block, and the Garner reconstruction.
+// negacyclic NTTs of one block, and the Garner reconstructions (garner_u64
+// for K3, garner_u32 for K4).
 //
 // Forward: Cooley-Tukey over the bit-reversed powers of psi (the primitive
 // 2N-th root), natural order in, bit-reversed order out: slot k holds
@@ -40,6 +41,12 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) 
 __device__ __forceinline__ int folded_slot(int k, int logn, int logc) {
   int j = (int)(__brev((unsigned)k) >> (32 - logn));
   return ((j & ((1 << logc) - 1)) << (logn - logc)) + (j >> logc);
+}
+
+// The NTT slot of evaluation j. Folded slot h = t R + s holds evaluation
+// j = s C + t, so folded_slot(bitrev(s C + t)) == h.
+__device__ __forceinline__ int bitrev(int j, int logn) {
+  return (int)(__brev((unsigned)j) >> (32 - logn));
 }
 
 // Forward NTT of `rows` consecutive length-n rows in shared memory, all
@@ -99,7 +106,7 @@ __device__ void ntt_inv_rows(uint32_t* buf, int rows, int logn, const uint32_t* 
 // prime q < nprimes, -> the signed CRT value mod 2^64, in native u64
 // arithmetic (mixed-radix digits, Horner, then a lexicographic compare of
 // the digits with those of prod/2 for the negative range). Called by K3
-// (blind_rotate.cu) and K4 (multibit.cu) on their residue rows.
+// (blind_rotate.cu) on its residue rows.
 //
 // Constants gc (u64): [0..3] primes, [4..7] inv[i], [8..23] pmod[i][j] at
 // 8 + 4 i + j, [24..27] mixed-radix digits of prod/2, [28] prod mod 2^64
@@ -127,6 +134,51 @@ __device__ __forceinline__ uint64_t garner_u64(const uint32_t* res, size_t strid
     eq = eq && v[j] == gc[24 + j];
   }
   return neg ? x - gc[28] : x;
+}
+
+// Garner in u32 Shoup arithmetic (K4): the canonical residues r[q], q <
+// nprimes <= 4, of one coefficient -> the signed CRT value mod 2^64. The
+// mixed-radix digits of a canonical residue tuple are unique, so the result
+// equals garner_u64's. The digits come from mul_shoup by precomputed
+// companions, with no 64-bit `%`; then the wrapping u64 Horner and the same
+// lexicographic compare with the digits of prod/2. The primes ascend
+// (checked where the constants are built), so t * p_j + v_j < 2 p_q and one
+// conditional subtract keeps each partial sum canonical.
+//
+// Constants gs (u32, ops/multibit_cuda.garner_consts_shoup): [0..3] primes,
+// [4..7] inv[q], [8..11] their Shoup companions, [12..27] pmod[q][j] at
+// 12 + 4 q + j, [28..43] their companions at 28 + 4 q + j, [44..47] the
+// mixed-radix digits of prod/2, [48], [49] prod mod 2^64 (low, high word);
+// K4 keeps per-prime constants at [52..59] of the same array.
+constexpr int kGarnerShoupWords = 64;
+
+__device__ __forceinline__ uint64_t garner_u32(const uint32_t (&r)[4], int nprimes,
+                                               const uint32_t* gs) {
+  uint32_t v[4] = {r[0], 0, 0, 0};
+#pragma unroll
+  for (int q = 1; q < 4; ++q) {
+    if (q < nprimes) {
+      const uint32_t pq = gs[q];
+      uint32_t t = v[q - 1];
+#pragma unroll
+      for (int j = q - 2; j >= 0; --j) {
+        t = mul_shoup(t, gs[12 + 4 * q + j], gs[28 + 4 * q + j], pq) + v[j];
+        t = t >= pq ? t - pq : t;
+      }
+      v[q] = mul_shoup(sub_mod(r[q], t, pq), gs[4 + q], gs[8 + q], pq);
+    }
+  }
+  uint64_t x = 0;
+  bool neg = false, eq = true;
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    if (j < nprimes) {
+      x = v[j] + (uint64_t)gs[j] * x;
+      neg = neg || (eq && v[j] > gs[44 + j]);
+      eq = eq && v[j] == gs[44 + j];
+    }
+  }
+  return neg ? x - (((uint64_t)gs[49] << 32) | gs[48]) : x;
 }
 
 __host__ __device__ inline int ntt_threads(int work) {

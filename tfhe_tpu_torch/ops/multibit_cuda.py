@@ -11,21 +11,26 @@ computes, for level-1 gadget and k = 1,
 
 with m_i the NTT(X^{a_i}) rows of the group's g mask exponents, the 2^g
 aggregation Horner-factored over the bits. The result replaces the
-accumulator. `group_steps` launches the kernel, all groups in one launch,
-on CUDA tensors and runs `group_steps_plain` on CPU tensors; the plain
-version follows the JAX kernel step by step and is bit-exact with it.
+accumulator. `group_steps` launches the kernel, all groups in one launch
+of one block per (ciphertext, prime) in clusters of P blocks, on CUDA
+tensors and runs `group_steps_plain` on CPU tensors; the plain version
+follows the JAX kernel step by step and is bit-exact with it. The kernel
+reads the monomial rows as powers of psi (`psi_powers`) and reconstructs
+with `garner_u32` (`garner_consts_shoup`); it does not read `table`,
+which the plain version and the loop form of core/multibit do.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tfhe_tpu_torch import _build, _u64
-from tfhe_tpu_torch._u64 import condsub, shoup_mulmod
+from tfhe_tpu_torch._u64 import MASK32, condsub, shoup_mulmod
 from tfhe_tpu_torch.ops import ntt_cuda
-from tfhe_tpu_torch.ops.blind_rotate_cuda import garner_consts, level1_digits_forward_plain
+from tfhe_tpu_torch.ops.blind_rotate_cuda import level1_digits_forward_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +43,58 @@ def _lib():
     lib.tfhe_multibit_group_steps.argtypes = [_P] * 8 + [_I] * 8 + [_P]
     lib.tfhe_multibit_group_steps.restype = _I
     return lib
+
+
+def _as_i32(vals, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(vals, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(device)
+
+
+def garner_consts_shoup(engine) -> torch.Tensor:
+    """(64,) int32 u32 constants of garner_u32 (layout in
+    csrc/ntt_device.cuh) and, at [52 + q] and [56 + q], K4's per-prime
+    floor(2^32 / p_q) and the Shoup companion of 2^32 mod p_q; built once
+    per engine."""
+    gs = getattr(engine, "_garner_consts_shoup", None)
+    if gs is None:
+        g = engine.garner
+        # each partial sum t * p_j + v_j must stay below 2 p_q (j < q)
+        if list(g.primes) != sorted(set(g.primes)) or len(g.primes) > 4:
+            raise ValueError(f"garner_u32 needs at most 4 ascending primes, got {g.primes}")
+        vals = [0] * 64
+        for i, p in enumerate(g.primes):
+            vals[i] = p
+            vals[44 + i] = g.h[i]
+            vals[52 + i], vals[56 + i] = 2**32 // p, (2**32 % p << 32) // p
+            if i:
+                vals[4 + i], vals[8 + i] = g.inv[i]
+                for j in range(i):
+                    vals[12 + 4 * i + j], vals[28 + 4 * i + j] = g.pmod[i][j]
+        prod = g.prod % 2**64
+        vals[48], vals[49] = prod & MASK32, prod >> 32
+        gs = _as_i32(vals, engine.device)
+        engine._garner_consts_shoup = gs
+    return gs
+
+
+def psi_powers(engine) -> torch.Tensor:
+    """(P, 2, 2N) int32, built once per engine: psi^t mod p for t in
+    [0, 2N) and their Shoup companions. Folded slot h holds evaluation
+    j = (h mod R) * C + h / R, at the root psi^(2j+1), so the kernel reads
+    NTT(X^e) at h as psi^((2j+1) e mod 2N), for e in [N, 2N) too (psi^N = -1)."""
+    tab = getattr(engine, "_psi_powers", None)
+    if tab is None:
+        two_n = 2 * engine.n
+        rows = np.empty((engine.n_primes, 2, two_n), dtype=np.uint64)
+        for i, ntt in enumerate(engine.ntts):
+            pw = np.empty(two_n, dtype=np.uint64)
+            v = 1
+            for t in range(two_n):
+                pw[t] = v
+                v = v * ntt.psi % ntt.p
+            rows[i, 0], rows[i, 1] = pw, (pw << np.uint64(32)) // np.uint64(ntt.p)
+        tab = _as_i32(rows, engine.device)
+        engine._psi_powers = tab
+    return tab
 
 
 def multibit_bsk_to_step_layout(bsk_ntt: torch.Tensor):
@@ -74,8 +131,9 @@ def group_steps(acc, a, bsk_ntt, table, engine, base_log: int, shift: int, group
     """K4. acc (B, 2, N) int64 GLWE accumulators; a (n, B) ints in [0, 2N),
     the mod-switched mask, n = groups * g; bsk_ntt (groups, 2^g, 2, 2, P, 2, N)
     int32, the pattern GGSWs of those groups; table (2N, P, 2, N) int32,
-    the Shoup rows of NTT(X^e) (core.multibit.monomial_x_table). Returns
-    the accumulators after all group steps."""
+    the Shoup rows of NTT(X^e) (core.multibit.monomial_x_table), checked
+    and read by the plain version only. Returns the accumulators after all
+    group steps."""
     _check_args(acc, a, bsk_ntt, table, engine, base_log, group_size)
     if not acc.is_cuda:
         return group_steps_plain(acc, a, bsk_ntt, table, engine, base_log, shift, group_size)
@@ -84,18 +142,17 @@ def group_steps(acc, a, bsk_ntt, table, engine, base_log: int, shift: int, group
     acc = acc.contiguous()
     a = a.to(torch.int32).contiguous()
     bsk_ntt = bsk_ntt.contiguous()
-    table = table.contiguous()
     out = torch.empty_like(acc)
     if b == 0 or groups == 0:
         out.copy_(acc)
         return out
     tw, pp = ntt_cuda.kernel_tables(engine)
-    gc = garner_consts(engine)
+    gs = garner_consts_shoup(engine)
     logn, logc = ntt_cuda._dims(engine)
     _build.check(
         _lib().tfhe_multibit_group_steps(
-            acc.data_ptr(), out.data_ptr(), a.data_ptr(), bsk_ntt.data_ptr(), table.data_ptr(),
-            tw.data_ptr(), pp.data_ptr(), gc.data_ptr(), b, groups, group_size, logn, logc,
+            acc.data_ptr(), out.data_ptr(), a.data_ptr(), bsk_ntt.data_ptr(), psi_powers(engine).data_ptr(),
+            tw.data_ptr(), pp.data_ptr(), gs.data_ptr(), b, groups, group_size, logn, logc,
             engine.n_primes, base_log, shift, torch.cuda.current_stream(acc.device).cuda_stream,
         ),
         "tfhe_multibit_group_steps",

@@ -13,18 +13,19 @@ from __future__ import annotations
 
 import torch
 
-from tfhe_tpu_torch import _u64
+from tfhe_tpu_torch import _device, _u64
 from tfhe_tpu_torch.params import NoiseDistribution
 
 
 class FheRng:
     """Seeded sampler handle; sampling order is the reproducibility
-    contract. `device` is where samples are returned."""
+    contract. `device` is where samples are returned (default "cuda",
+    as every entry point; pass "cpu" to run without a card)."""
 
-    def __init__(self, seed: int, device="cpu"):
+    def __init__(self, seed: int, device=None):
         self._gen = torch.Generator(device="cpu")
         self._gen.manual_seed(int(seed))
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
 
     def _u32(self, shape) -> torch.Tensor:
         return torch.randint(0, 2**32, tuple(shape), generator=self._gen, dtype=torch.int64)
