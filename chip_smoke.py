@@ -5,8 +5,9 @@
 
 Builds the hand-written kernels from tfhe_tpu_torch/csrc with nvcc and
 holds each kernel against its plain PyTorch version on the card at the
-shapes the main paths give it (bit-exact; the forward NTT mod p). Then it
-drives, through the entry points a user calls, at full width:
+shapes the main paths give it (bit-exact; the forward NTT mod p; K3 and
+K4 also at ragged batches of 1, 3 and 64 ciphertexts). Then it drives,
+through the entry points a user calls, at full width:
 
 1. the classic shortint path at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
    (K1/K2 in keygen, K3 in every PBS): keygen, encrypt 512 values,
@@ -20,8 +21,8 @@ drives, through the entry points a user calls, at full width:
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. It
 prints the card, build time, per-kernel times beside their bounds,
-keygen seconds, PBS/s, transfers/s, K4's time at 64, 128 and 512
-ciphertexts (`ms_by_batch`), a `{"kernels": [...]}` line, and last
+keygen seconds, PBS/s, transfers/s, K3's and K4's times at 64, 128 and
+512 ciphertexts (`ms_by_batch`), a `{"kernels": [...]}` line, and last
 a `{"ok": true, "device": {...}}` line. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing a result.
 """
@@ -241,17 +242,22 @@ def main() -> int:
     print(f"check K1 ({2 * n}, {n}) err {k1_err}, u64 ({4 * PARAMS.lwe_dimension}, {n}) err {k1u_err}; "
           f"K2 ({rows2}, {n_pr}, {n}) err {k2_err}", flush=True)
 
-    # K3: one launch of 4 steps over 64 ciphertexts, random accumulators and key rows
+    # K3: one launch of 4 steps, random accumulators and key rows, at ragged
+    # batches of 1, 3 and 64 ciphertexts (the grid holds one block per
+    # ciphertext and prime), with a = 0 and exponents >= N among the steps
     rot_table = brc.monomial_ntt_table(eng)
     base_log = PARAMS.pbs.base_log
     acc = rand_u64((64, 2, n))
-    exps = rand_i32((4, 64), 0, 2 * n)
     bsk = rand_key_rows((4, 2, 2))
-    k3s_err = exact_err(
-        brc.cmux_steps(acc, exps, bsk, rot_table, eng, base_log, 11),
-        brc.cmux_steps_plain(acc, exps, bsk, rot_table, eng, base_log, 11),
-    )
-    check(k3s_err == 0, f"K3 vs plain, 4 steps x 64 ciphertexts (err {k3s_err})")
+    k3s_err = {}
+    for nb in (1, 3, 64):
+        exps = rand_i32((4, nb), 0, 2 * n)
+        exps[0, 0], exps[1, nb // 2], exps[2, nb - 1], exps[3, 0] = 0, n, 2 * n - 1, n + 1
+        k3s_err[f"{nb}ct"] = exact_err(
+            brc.cmux_steps(acc[:nb], exps, bsk, rot_table, eng, base_log, 11),
+            brc.cmux_steps_plain(acc[:nb], exps, bsk, rot_table, eng, base_log, 11),
+        )
+    check(all(e == 0 for e in k3s_err.values()), f"K3 vs plain, 4 steps x 1/3/64 ciphertexts (err {k3s_err})")
     # K4: one launch of 4 groups for each group size, at ragged batches of 1, 3
     # and 64 ciphertexts (the grid holds one block per ciphertext and prime)
     x_table = mb.monomial_x_table(eng)
@@ -266,7 +272,7 @@ def main() -> int:
             )
     check(all(e == 0 for e in k4s_err.values()), f"K4 vs plain, 4 groups x 1/3/64 ciphertexts (err {k4s_err})")
     del bsk, x_table
-    print(f"check K3 (64 ct, 4 steps) err {k3s_err}; K4 (4 groups) err by g and batch {k4s_err}", flush=True)
+    print(f"check K3 (4 steps) err by batch {k3s_err}; K4 (4 groups) err by g and batch {k4s_err}", flush=True)
 
     # -- path 1: the classic shortint path at full width ----------------------
     reset_counts()
@@ -317,16 +323,28 @@ def main() -> int:
     k3_err = exact_err(brc.cmux_steps(*args), plain_out)
     check(k3_err == 0, f"K3 vs plain at the classic path's shape (err {k3_err})")
     steps = PARAMS.lwe_dimension
-    b, o = bound_ms(
-        rotation_bytes(BATCH, steps, sk.bsk.bsk_ntt.numel() * 4, 1, n_pr, n),
-        cmux_ops(BATCH, steps, n_pr, n),
-    )
+    k3_key_bytes = sk.bsk.bsk_ntt.numel() * 4
+
+    def k3_bound(nb):
+        return bound_ms(rotation_bytes(nb, steps, k3_key_bytes, 1, n_pr, n), cmux_ops(nb, steps, n_pr, n))
+
+    # a classic PBS of a few ciphertexts launches K3 on a small batch: time 64 and 128 too
+    k3_by_batch = {}
+    for nb in (64, 128):
+        acc_b, e_b = acc0[:nb].contiguous(), e_all[:, :nb].contiguous()
+        t_b = cuda_ms(lambda: brc.cmux_steps(acc_b, e_b, *args[2:]), 3)
+        k3_by_batch[str(nb)] = dict(zip(("ms", "bound_ms", "bound_by"), (t_b, *k3_bound(nb))))
+    b, o = k3_bound(BATCH)
+    k3_by_batch[str(BATCH)] = dict(ms=k3_ms, bound_ms=b, bound_by=o)
     kern["K3"] = dict(
         name="cmux_steps", route="cuda", source="tfhe_tpu_torch/csrc/blind_rotate.cu",
-        replaces="tfhe_tpu/ops/pallas_blind_rotate.py:279", max_abs_err=max(k3_err, k3s_err, pbs_err),
+        replaces="tfhe_tpu/ops/pallas_blind_rotate.py:279", max_abs_err=max(k3_err, pbs_err, *k3s_err.values()),
         ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=b, bound_by=o, library_ms=None, path="classic",
-        shape=f"{BATCH} ct x {steps} steps",
+        shape=f"{BATCH} ct x {steps} steps", ms_by_batch=k3_by_batch,
     )
+    print("K3 by batch: " + ", ".join(
+        f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']})" for nb, v in k3_by_batch.items()
+    ), flush=True)
     del ck, sk, c, ident, tri, prod, small, acc0, args, plain_out, rot_table
 
     # -- path 2: the multi-bit path, GROUP_3 at full width --------------------

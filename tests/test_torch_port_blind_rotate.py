@@ -4,12 +4,19 @@
   JAX Pallas kernel make_pallas_blind_rotate (interpret mode) on random
   accumulators, monomial-table rows and BSK rows;
 * the port's Garner against FoldedCrtEngine.crt_reconstruct, and the
-  CUDA kernel's native-u64 Garner, replayed in numpy from the constants
-  it is given;
+  CUDA kernels' `garner_u32`, replayed in numpy from the constants it is
+  given;
+* K3's own arithmetic (csrc/blind_rotate.cu), replayed in numpy: NTT(X^a - 1)
+  from powers of psi, with its Shoup companion, equals `monomial_ntt_table`
+  word for word for every a in [0, 2N); one step in the kernel's order
+  (digits per prime, register-round NTTs, EP x (m - 1) at folded slots,
+  inverse rounds, the cluster's Garner shares, acc +=) equals
+  `one_step_plain` bit for bit;
 * with JAX keys carried across (convert.py), the port's blind_rotate
   against bt._blind_rotate_fused (the test_fused_blind_rotate setup:
   N=256, n=12, k=1, level 1 / base_log 23, 5 ciphertexts), and the
-  external-product loop of other shapes against the JAX scan.
+  external-product loop of other shapes against the JAX scan; the carried
+  keys land on the card unless the CPU is asked for.
 """
 
 import dataclasses
@@ -34,7 +41,11 @@ from tfhe_tpu_torch.core import bootstrap as tbt
 from tfhe_tpu_torch.core.lwe import keyswitch
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
+from tfhe_tpu_torch.ops import ntt_cuda
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
+from test_torch_port_multibit import (
+    _bitrev, _digit_residue, _garner_u32, _k4_ntt_forward, _k4_ntt_inverse, _mul_shoup, _shoup_companion, _unfold,
+)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -95,29 +106,6 @@ def test_step_layout_matches_reference():
     np.testing.assert_array_equal(s.numpy().view(np.uint32), np.asarray(js))
 
 
-def _kernel_garner(res, gc, n_pr, shift):
-    """csrc/blind_rotate.cu's Garner in numpy uint64 (wrapping) arithmetic."""
-    gc = gc.astype(np.uint64)
-    v = [res[0].astype(np.uint64)]
-    for q in range(1, n_pr):
-        pq = gc[q]
-        tq = v[q - 1]
-        for j in range(q - 2, -1, -1):
-            tq = (tq * gc[8 + 4 * q + j] + v[j]) % pq
-        d = (res[q].astype(np.uint64) + pq - tq % pq) % pq
-        v.append(d * gc[4 + q] % pq)
-    x = v[-1]
-    for j in range(n_pr - 2, -1, -1):
-        x = v[j] + gc[j] * x
-    neg = v[-1] > gc[24 + n_pr - 1]
-    eq = v[-1] == gc[24 + n_pr - 1]
-    for j in range(n_pr - 2, -1, -1):
-        neg = neg | (eq & (v[j] > gc[24 + j]))
-        eq = eq & (v[j] == gc[24 + j])
-    x = np.where(neg, x - gc[28], x)
-    return x << np.uint64(shift)
-
-
 def test_garner_matches_reference():
     je, te = jax_engine(N), get_folded_engine(N, "cpu")
     rng = np.random.default_rng(2)
@@ -129,8 +117,94 @@ def test_garner_matches_reference():
     got = _u64.u64_to_numpy(te.crt_reconstruct([convert.u32_tensor(r) for r in res]))
     want = np.asarray(je.crt_reconstruct([jnp.asarray(r) for r in res]))
     np.testing.assert_array_equal(got, want)
-    gc = _u64.u64_to_numpy(brc.garner_consts(te))
-    np.testing.assert_array_equal(_kernel_garner(res, gc, te.n_primes, SHIFT), want << np.uint64(SHIFT))
+    gs = ntt_cuda.garner_consts_shoup(te).numpy().view(np.uint32)
+    np.testing.assert_array_equal(_garner_u32(res, gs) << np.uint64(SHIFT), want << np.uint64(SHIFT))
+
+
+# -- csrc/blind_rotate.cu arithmetic, replayed in numpy ------------------------
+
+
+def _k3_monomial(te, r, e):
+    """K3's NTT(X^e - 1) at every folded slot h = tq R + s for prime r:
+    m = psi^((2 tq + 1) e mod 2N) . omega^(s e mod R) - 1 (omega = psi^(2C))
+    and its exact Shoup companion; e (E, 1) -> two (E, N) arrays."""
+    logn, logc = ntt_cuda._dims(te)
+    logr = logn - logc
+    p = te.primes[r]
+    psi = ntt_cuda.psi_powers(te).numpy().view(np.uint32)[r]  # (2, 2N)
+    gs = ntt_cuda.garner_consts_shoup(te).numpy().view(np.uint32)
+    h = np.arange(te.n)
+    s, tq = h & ((1 << logr) - 1), h >> logr
+    ta = ((2 * tq + 1) * e) & (2 * te.n - 1)
+    omega = psi[0, ((s * e) & ((1 << logr) - 1)) << (logc + 1)]
+    m = _mul_shoup(omega, psi[0, ta], psi[1, ta], p)
+    m = np.where(m >= 1, m - 1, m + p - 1)  # sub_mod(m, 1, p)
+    return m, _shoup_companion(m, p, gs[52 + r], gs[56 + r])
+
+
+def test_k3_monomials_give_the_rot_table():
+    """Every a in [0, 2N), a = 0 (the zero row) and a >= N (X^(N+j) = -X^j)
+    included: values and Shoup companions word for word."""
+    te = get_folded_engine(N, "cpu")
+    table = brc.monomial_ntt_table(te).numpy().view(np.uint32)  # (2N, P, 2, N)
+    for r in range(te.n_primes):
+        m, ms = _k3_monomial(te, r, np.arange(2 * N)[:, None])
+        assert not m[0].any()
+        np.testing.assert_array_equal(m, table[:, r, 0])
+        np.testing.assert_array_equal(ms, table[:, r, 1])
+
+
+def _k3_step(te, acc, e, bsk, base_log, shift):
+    """One K3 step in the kernel's order, in numpy: acc (B, 2, N) uint64,
+    e (B,) exponents, bsk (2, 2, P, 2, N) uint32 the step's GGSW rows
+    (d, c, prime, value / Shoup) -> the new accumulators."""
+    logn, logc = ntt_cuda._dims(te)
+    tw, pp = (t.numpy().view(np.uint32).astype(np.uint64) for t in ntt_cuda.kernel_tables(te))
+    gs = ntt_cuda.garner_consts_shoup(te).numpy().view(np.uint32)
+    b, n = acc.shape[0], te.n
+    k = _bitrev(_unfold(np.arange(n), logn, logc), logn)  # NTT slot of folded slot h
+    res = []
+    for r, p in enumerate(te.primes):
+        # the digit rows of all ciphertexts as the columns of one (N, 2B) array
+        d = _digit_residue(acc, base_log, p).reshape(2 * b, n).T
+        f = _k4_ntt_forward(d, tw[r, 0], tw[r, 1], p, logn).T.reshape(b, 2, n)[:, :, k]
+        m, ms = _k3_monomial(te, r, e[:, None])
+        out = np.empty((b, 2, n), dtype=np.uint64)
+        for c in range(2):
+            ep = (_mul_shoup(f[:, 0], bsk[0, c, r, 0], bsk[0, c, r, 1], p)
+                  + _mul_shoup(f[:, 1], bsk[1, c, r, 0], bsk[1, c, r, 1], p)) % p
+            out[:, c, k] = _mul_shoup(ep, m, ms, p)
+        inv = _k4_ntt_inverse(out.reshape(2 * b, n).T, tw[r, 2], tw[r, 3], p, pp[r, 1], pp[r, 2], logn)
+        res.append(inv.T.reshape(b, 2 * n))
+    # block r of the cluster adds the Garner of coefficients [lo, hi)
+    new = acc.reshape(b, 2 * n).copy()
+    share = -(-2 * n // te.n_primes)
+    for r in range(te.n_primes):
+        sl = slice(r * share, min(2 * n, (r + 1) * share))
+        new[:, sl] += _garner_u32([x[:, sl] for x in res], gs) << np.uint64(shift)
+    return new.reshape(b, 2, n)
+
+
+def test_k3_step_order_matches_plain():
+    """Three steps on random accumulators and key rows, exponents 0 and
+    >= N among them: the kernel's order equals one_step_plain bit for bit,
+    and the next step's digits come from the new accumulator."""
+    te = get_folded_engine(N, "cpu")
+    rng = np.random.default_rng(12)
+    b, steps = 3, 3
+    acc = rng.integers(0, 2**64, size=(b, 2, N), dtype=np.uint64)
+    bsk = _random_shoup_rows(te, rng, (steps, 2, 2))
+    exps = rng.integers(0, 2 * N, size=(steps, b))
+    exps[0, 0], exps[1, 1], exps[2, 2] = 0, N, 2 * N - 1
+    table = brc.monomial_ntt_table(te)
+    bv, bs = brc.bsk_to_step_layout(bsk)
+    want = convert.u64_tensor(acc)
+    got = acc
+    for j in range(steps):
+        rows = table[torch.from_numpy(exps[j])]  # (B, P, 2, N)
+        want = brc.one_step_plain(want, rows[..., 0, :], rows[..., 1, :], bv[j], bs[j], te, 23, SHIFT)
+        got = _k3_step(te, got, exps[j], bsk[j].numpy().view(np.uint32), 23, SHIFT)
+        np.testing.assert_array_equal(got, _u64.u64_to_numpy(want), err_msg=f"step {j}")
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +218,7 @@ def fused_setup():
         pbs=jp.GadgetParams(base_log=23, level=1),
     )
     ck, sk = jsi.keygen(params, seed=2)
-    tck, tsk = convert.keys_from_reference(ck, sk)
+    tck, tsk = convert.keys_from_reference(ck, sk, device="cpu")
     return params, ck, sk, tck, tsk
 
 
@@ -164,6 +238,18 @@ def test_blind_rotate_matches_fused_reference(fused_setup):
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), np.asarray(want))
 
 
+def test_keys_from_reference_default_to_the_card(fused_setup):
+    """Without a device the carried keys go to the card: they land on cuda
+    where there is one, and the call raises where there is none."""
+    _, ck, sk, _, _ = fused_setup
+    if torch.cuda.is_available():
+        tck, tsk = convert.keys_from_reference(ck, sk)
+        assert tck.lwe_key.key.is_cuda and tsk.bsk.bsk_ntt.is_cuda and tsk.ksk.ksk.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            convert.keys_from_reference(ck, sk)
+
+
 def test_rot_table_matches_reference(fused_setup):
     _, _, sk, _, tsk = fused_setup
     got = brc.monomial_ntt_table(get_folded_engine(N, "cpu"))
@@ -176,7 +262,7 @@ def test_external_product_loop_matches_scan():
     products against the JAX lax.scan branch."""
     params = jp.TOY_SHORTINT
     ck, sk = jsi.keygen(params, seed=3)
-    tck, tsk = convert.keys_from_reference(ck, sk)
+    tck, tsk = convert.keys_from_reference(ck, sk, device="cpu")
     small = jax_keyswitch(jsi.encrypt(ck, jnp.asarray([0, 1, 2, 3], dtype=jnp.uint64), JaxRng(5)).ct, sk.ksk)
     lut = jsi.generate_lut(params, np.arange(16, dtype=np.uint64))
     want = jbt.blind_rotate(lut, small, sk.bsk, jsi.engine_for(params))

@@ -66,7 +66,7 @@ def _port_params():
 def carried():
     params = _jax_params()
     ck, sk = jsi.keygen(params, seed=3, multibit_group=2)
-    tck, tsk = convert.keys_from_reference(ck, sk)
+    tck, tsk = convert.keys_from_reference(ck, sk, device="cpu")
     assert isinstance(tsk.bsk, MultiBitBootstrapKey) and tsk.bsk.group_size == 2
     a = ri.encrypt_radix(ck, jnp.asarray(A_VALS, dtype=U64), BITS, JaxRng(5))
     b = ri.encrypt_radix(ck, jnp.asarray(B_VALS, dtype=U64), BITS, JaxRng(6))

@@ -10,8 +10,8 @@
   the plain `_horner` mod p.
 * The kernel's own arithmetic, replayed in numpy: the monomial rows it
   reads as powers of psi equal `monomial_x_table`; `garner_u32` on the
-  `garner_consts_shoup` constants equals `crt_reconstruct` and K3's
-  `garner_u64`; the %-free digit reduction equals d mod p; bitrev(unfold(h))
+  `garner_consts_shoup` constants equals `crt_reconstruct`; the %-free
+  digit reduction equals d mod p; bitrev(unfold(h))
   inverts the folded layout; the Garner shares of a cluster cover every
   coefficient once.
 * Keys from the port's own keygen decrypt right, with the shift and msb of
@@ -42,6 +42,7 @@ from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch.core import multibit as tmb
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.ops import multibit_cuda as mbc
+from tfhe_tpu_torch.ops import ntt_cuda
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.rng import FheRng
 
@@ -82,7 +83,7 @@ def carried():
     keys = {}
     for g in GROUPS:
         bsk = jmb.gen_multibit_bootstrap_key(lwe_sk, glwe_sk, params.pbs, g, rng, params.glwe_noise, engine)
-        keys[g] = (bsk, convert.multibit_bootstrap_key_from_reference(bsk))
+        keys[g] = (bsk, convert.multibit_bootstrap_key_from_reference(bsk, device="cpu"))
     msgs = jnp.arange(6, dtype=jnp.uint64)
     ct = encrypt_lwe(lwe_sk, encode(msgs, params.delta), rng, params.lwe_noise)
     lut = jsi.generate_lut(params, LUT_TABLE)
@@ -203,8 +204,6 @@ def _monomial_rows(te, e, x):
     """K4's product x . NTT(X^e) at every folded slot h = tq R + s, (P, N):
     m = omega^(s e mod R) . psi^((2 tq + 1) e mod 2N), omega = psi^(2C),
     then one mul_shoup by m with its exact companion."""
-    from tfhe_tpu_torch.ops import ntt_cuda
-
     logn, logc = ntt_cuda._dims(te)
     logr = logn - logc
     psi = mbc.psi_powers(te).numpy().view(np.uint32)  # (P, 2, 2N)
@@ -282,10 +281,6 @@ def _garner_u32(res, gs):
 
 
 def test_garner_u32_matches_crt_reconstruct():
-    from test_torch_port_blind_rotate import _kernel_garner
-
-    from tfhe_tpu_torch.ops.blind_rotate_cuda import garner_consts
-
     te = get_folded_engine(N, "cpu")
     prod = te.garner.prod
     # the extremes: prod/2 (the largest positive value) and one above it
@@ -298,7 +293,9 @@ def test_garner_u32_matches_crt_reconstruct():
     np.testing.assert_array_equal(want, signed)
     got = _garner_u32(res, mbc.garner_consts_shoup(te).numpy().view(np.uint32))
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(got, _kernel_garner(res, _u64.u64_to_numpy(garner_consts(te)), te.n_primes, 0))
+    # the re-exported tables are ntt_cuda's, which K3 reads too
+    assert mbc.garner_consts_shoup(te) is ntt_cuda.garner_consts_shoup(te)
+    assert mbc.psi_powers(te) is ntt_cuda.psi_powers(te)
 
 
 def test_garner_consts_shoup_need_ascending_primes():
@@ -409,8 +406,6 @@ def test_k4_ntt_rounds_match_plain(n):
     """K4's NTT in rounds of three stages (all round sizes 1, 2, 3 occur)
     equals the plain forward transform at every folded slot, and its
     inverse gives the input back."""
-    from tfhe_tpu_torch.ops import ntt_cuda
-
     te = get_folded_engine(n, "cpu")
     logn, logc = ntt_cuda._dims(te)
     tw, pp = (t.numpy().view(np.uint32).astype(np.uint64) for t in ntt_cuda.kernel_tables(te))
@@ -456,8 +451,6 @@ def test_k4_padding_spreads_the_strided_accesses():
 
 @pytest.mark.parametrize("n", (256, 2048))
 def test_bitrev_unfold_inverts_folded_slot(n):
-    from tfhe_tpu_torch.ops import ntt_cuda
-
     logn, logc = ntt_cuda._dims(get_folded_engine(n, "cpu"))
     h = np.arange(n)
     k = _bitrev(_unfold(h, logn, logc), logn)

@@ -63,7 +63,7 @@ def carried():
         pbs=jp.GadgetParams(base_log=23, level=1),
     )
     ck, sk = jsi.keygen(params, seed=2)
-    tck, tsk = convert.keys_from_reference(ck, sk)
+    tck, tsk = convert.keys_from_reference(ck, sk, device="cpu")
     vals = jnp.asarray([0, 1, 2, 3, 1, 2], dtype=jnp.uint64)
     ct = jsi.encrypt(ck, vals, JaxRng(6))
     return params, ck, sk, tck, tsk, vals, ct

@@ -4,7 +4,8 @@ The functions read the reference objects' fields as numpy arrays
 (`np.asarray`) and never import JAX or tfhe_tpu: a ClientKey / ServerKey
 of tfhe_tpu.models.shortint (classic or multi-bit keys) becomes the
 port's, bit for bit, so both packages can run on the same key material
-and ciphertexts.
+and ciphertexts. The key functions put the keys on `device`, which is the
+card unless the caller asks for the CPU (`_device.resolve`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfhe_tpu_torch import _u64
+from tfhe_tpu_torch import _device, _u64
 from tfhe_tpu_torch.core.bootstrap import BootstrapKey
 from tfhe_tpu_torch.core.keys import GlweSecretKey, LweSecretKey
 from tfhe_tpu_torch.core.lwe import KeyswitchKey
@@ -55,7 +56,8 @@ def params_from_reference(p) -> ShortintParams:
     )
 
 
-def client_key_from_reference(ck, device="cpu") -> ClientKey:
+def client_key_from_reference(ck, device=None) -> ClientKey:
+    device = _device.resolve(device)
     return ClientKey(
         glwe_key=GlweSecretKey(key=u64_tensor(ck.glwe_key.key, device)),
         lwe_key=LweSecretKey(key=u64_tensor(ck.lwe_key.key, device)),
@@ -63,7 +65,8 @@ def client_key_from_reference(ck, device="cpu") -> ClientKey:
     )
 
 
-def bootstrap_key_from_reference(bsk, device="cpu") -> BootstrapKey:
+def bootstrap_key_from_reference(bsk, device=None) -> BootstrapKey:
+    device = _device.resolve(device)
     return BootstrapKey(
         bsk_ntt=u32_tensor(bsk.bsk_ntt, device),
         gadget=gadget_from_reference(bsk.gadget),
@@ -72,7 +75,8 @@ def bootstrap_key_from_reference(bsk, device="cpu") -> BootstrapKey:
     )
 
 
-def multibit_bootstrap_key_from_reference(bsk, device="cpu") -> MultiBitBootstrapKey:
+def multibit_bootstrap_key_from_reference(bsk, device=None) -> MultiBitBootstrapKey:
+    device = _device.resolve(device)
     return MultiBitBootstrapKey(
         bsk_ntt=u32_tensor(bsk.bsk_ntt, device),
         gadget=gadget_from_reference(bsk.gadget),
@@ -82,7 +86,8 @@ def multibit_bootstrap_key_from_reference(bsk, device="cpu") -> MultiBitBootstra
     )
 
 
-def keyswitch_key_from_reference(ksk, device="cpu") -> KeyswitchKey:
+def keyswitch_key_from_reference(ksk, device=None) -> KeyswitchKey:
+    device = _device.resolve(device)
     return KeyswitchKey(
         ksk=u64_tensor(ksk.ksk, device),
         ksk_limbs=torch.from_numpy(np.array(ksk.ksk_limbs, dtype=np.int8)).to(device),
@@ -90,7 +95,7 @@ def keyswitch_key_from_reference(ksk, device="cpu") -> KeyswitchKey:
     )
 
 
-def server_key_from_reference(sk, device="cpu") -> ServerKey:
+def server_key_from_reference(sk, device=None) -> ServerKey:
     """Classic or multi-bit: a bootstrap key with a `group_size` is a
     tfhe_tpu MultiBitBootstrapKey."""
     if hasattr(sk.bsk, "group_size"):
@@ -104,6 +109,6 @@ def server_key_from_reference(sk, device="cpu") -> ServerKey:
     )
 
 
-def keys_from_reference(ck, sk, device="cpu") -> tuple[ClientKey, ServerKey]:
+def keys_from_reference(ck, sk, device=None) -> tuple[ClientKey, ServerKey]:
     """(ClientKey, ServerKey) of tfhe_tpu -> the port's, on `device`."""
     return client_key_from_reference(ck, device), server_key_from_reference(sk, device)

@@ -1,8 +1,9 @@
 // Device functions shared by the NTT kernels (ntt.cu), the fused CMux
 // kernel (blind_rotate.cu) and the multi-bit group-step kernel
 // (multibit.cu): u32 Shoup arithmetic mod a prime p < 2^30, in-shared-memory
-// negacyclic NTTs of one block, and the Garner reconstructions (garner_u64
-// for K3, garner_u32 for K4).
+// negacyclic NTTs of one block (K1/K2; the rotation kernels take the
+// register rounds of rotate_device.cuh), and the Garner reconstruction
+// garner_u32 of K3 and K4.
 //
 // Forward: Cooley-Tukey over the bit-reversed powers of psi (the primitive
 // 2N-th root), natural order in, bit-reversed order out: slot k holds
@@ -102,54 +103,22 @@ __device__ void ntt_inv_rows(uint32_t* buf, int rows, int logn, const uint32_t* 
   __syncthreads();
 }
 
-// Garner: the canonical residues of one coefficient, res[q * stride] for
-// prime q < nprimes, -> the signed CRT value mod 2^64, in native u64
-// arithmetic (mixed-radix digits, Horner, then a lexicographic compare of
-// the digits with those of prod/2 for the negative range). Called by K3
-// (blind_rotate.cu) on its residue rows.
-//
-// Constants gc (u64): [0..3] primes, [4..7] inv[i], [8..23] pmod[i][j] at
-// 8 + 4 i + j, [24..27] mixed-radix digits of prod/2, [28] prod mod 2^64
-// (ops/blind_rotate_cuda.garner_consts).
-__device__ __forceinline__ uint64_t garner_u64(const uint32_t* res, size_t stride, int nprimes,
-                                               const uint64_t* __restrict__ gc) {
-  uint64_t v[4];
-  v[0] = res[0];
-  for (int q = 1; q < nprimes; ++q) {
-    const uint64_t pq = gc[q];
-    uint64_t tq = v[q - 1];
-    for (int j = q - 2; j >= 0; --j) {
-      tq = (tq * gc[8 + 4 * q + j] + v[j]) % pq;
-    }
-    const uint64_t rq = res[(size_t)q * stride];
-    const uint64_t d = (rq + pq - tq % pq) % pq;
-    v[q] = d * gc[4 + q] % pq;
-  }
-  uint64_t x = v[nprimes - 1];
-  for (int j = nprimes - 2; j >= 0; --j) x = v[j] + gc[j] * x;
-  bool neg = v[nprimes - 1] > gc[24 + nprimes - 1];
-  bool eq = v[nprimes - 1] == gc[24 + nprimes - 1];
-  for (int j = nprimes - 2; j >= 0; --j) {
-    neg = neg || (eq && v[j] > gc[24 + j]);
-    eq = eq && v[j] == gc[24 + j];
-  }
-  return neg ? x - gc[28] : x;
-}
-
-// Garner in u32 Shoup arithmetic (K4): the canonical residues r[q], q <
+// Garner in u32 Shoup arithmetic: the canonical residues r[q], q <
 // nprimes <= 4, of one coefficient -> the signed CRT value mod 2^64. The
 // mixed-radix digits of a canonical residue tuple are unique, so the result
-// equals garner_u64's. The digits come from mul_shoup by precomputed
-// companions, with no 64-bit `%`; then the wrapping u64 Horner and the same
-// lexicographic compare with the digits of prod/2. The primes ascend
+// equals crt_reconstruct's. The digits come from mul_shoup by precomputed
+// companions, with no 64-bit `%`; then the wrapping u64 Horner and a
+// lexicographic compare with the digits of prod/2 for the negative range
+// (values above prod/2 are prod below their signed value). The primes ascend
 // (checked where the constants are built), so t * p_j + v_j < 2 p_q and one
 // conditional subtract keeps each partial sum canonical.
 //
-// Constants gs (u32, ops/multibit_cuda.garner_consts_shoup): [0..3] primes,
+// Constants gs (u32, ops/ntt_cuda.garner_consts_shoup): [0..3] primes,
 // [4..7] inv[q], [8..11] their Shoup companions, [12..27] pmod[q][j] at
 // 12 + 4 q + j, [28..43] their companions at 28 + 4 q + j, [44..47] the
 // mixed-radix digits of prod/2, [48], [49] prod mod 2^64 (low, high word);
-// K4 keeps per-prime constants at [52..59] of the same array.
+// the rotation kernels keep per-prime constants at [52..59] of the same
+// array.
 constexpr int kGarnerShoupWords = 64;
 
 __device__ __forceinline__ uint64_t garner_u32(const uint32_t (&r)[4], int nprimes,

@@ -7,10 +7,15 @@ Replaces tfhe_tpu/ops/pallas_blind_rotate.py make_pallas_blind_rotate
 
     acc += (X^{a_j} - 1) * EP(BSK_j, acc)
 
-with (X^{a_j} - 1) applied as a pointwise Shoup multiply by the row
-NTT(X^{a_j} - 1) of the monomial table. `cmux_steps` launches the kernel
-on CUDA tensors and runs `cmux_steps_plain` on CPU tensors; the plain
-version follows the JAX kernel step by step and is bit-exact with it.
+with (X^{a_j} - 1) applied as a pointwise Shoup multiply by NTT(X^{a_j} - 1).
+`cmux_steps` launches the kernel, all steps in one launch of one block per
+(ciphertext, prime) in clusters of P blocks, on CUDA tensors and runs
+`cmux_steps_plain` on CPU tensors; the plain version follows the JAX
+kernel step by step, reading the rows of the monomial table
+(`monomial_ntt_table`), and is bit-exact with it. The kernel forms those
+rows from powers of psi (`ntt_cuda.psi_powers`) and reconstructs with
+`garner_u32` (`ntt_cuda.garner_consts_shoup`); it does not read
+`rot_table`.
 """
 
 from __future__ import annotations
@@ -59,26 +64,6 @@ def bsk_to_step_layout(bsk_ntt: torch.Tensor):
     return v, s
 
 
-def garner_consts(engine) -> torch.Tensor:
-    """(32,) int64 Garner constants for the kernel (layout in
-    csrc/blind_rotate.cu), built once per engine."""
-    gc = getattr(engine, "_garner_consts", None)
-    if gc is None:
-        g = engine.garner
-        vals = [0] * 32
-        for i, p in enumerate(g.primes):
-            vals[i] = p
-            vals[24 + i] = g.h[i]
-            if i:
-                vals[4 + i] = g.inv[i][0]
-                for j in range(i):
-                    vals[8 + 4 * i + j] = g.pmod[i][j][0]
-        vals[28] = _u64.const(g.prod)
-        gc = torch.tensor(vals, dtype=torch.int64, device=engine.device)
-        engine._garner_consts = gc
-    return gc
-
-
 def _check_args(acc, exps, bsk_ntt, rot_table, engine, base_log):
     n, n_pr = engine.n, engine.n_primes
     if not 1 <= base_log <= 31:
@@ -97,7 +82,8 @@ def _check_args(acc, exps, bsk_ntt, rot_table, engine, base_log):
 def cmux_steps(acc, exps, bsk_ntt, rot_table, engine, base_log: int, shift: int) -> torch.Tensor:
     """K3. acc (B, 2, N) int64 GLWE accumulators; exps (steps, B) ints in
     [0, 2N), the mod-switched mask of step j; bsk_ntt (steps, 2, 2, P, 2, N)
-    int32, the GGSWs of those steps; rot_table from monomial_ntt_table.
+    int32, the GGSWs of those steps; rot_table (2N, P, 2, N) int32 from
+    monomial_ntt_table, checked and read by the plain version only.
     Returns the accumulators after the `steps` CMux steps."""
     _check_args(acc, exps, bsk_ntt, rot_table, engine, base_log)
     if not acc.is_cuda:
@@ -106,18 +92,17 @@ def cmux_steps(acc, exps, bsk_ntt, rot_table, engine, base_log: int, shift: int)
     acc = acc.contiguous()
     e = exps.to(torch.int32).contiguous()
     bsk_ntt = bsk_ntt.contiguous()
-    rot_table = rot_table.contiguous()
     out = torch.empty_like(acc)
     if b == 0 or steps == 0:
         out.copy_(acc)
         return out
     tw, pp = ntt_cuda.kernel_tables(engine)
-    gc = garner_consts(engine)
+    gs = ntt_cuda.garner_consts_shoup(engine)
     logn, logc = ntt_cuda._dims(engine)
     _build.check(
         _lib().tfhe_cmux_steps(
             acc.data_ptr(), out.data_ptr(), e.data_ptr(), bsk_ntt.data_ptr(),
-            rot_table.data_ptr(), tw.data_ptr(), pp.data_ptr(), gc.data_ptr(),
+            ntt_cuda.psi_powers(engine).data_ptr(), tw.data_ptr(), pp.data_ptr(), gs.data_ptr(),
             b, steps, logn, logc, engine.n_primes, base_log, shift,
             torch.cuda.current_stream(acc.device).cuda_stream,
         ),

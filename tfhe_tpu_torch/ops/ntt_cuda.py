@@ -6,7 +6,10 @@ Their plain PyTorch versions are FoldedCrtEngine.forward_small_plain /
 forward_i32_plain / forward_u64_plain and inverse_plain
 (ops/folded_ntt.py), which mirror the JAX transforms. The wrappers take
 CUDA tensors only: on anything else they raise. Each counts its launches
-in `<wrapper>.launches`.
+in `<wrapper>.launches`. The module also builds the constant tables every
+kernel reads: the twiddle rows (`kernel_tables`) and, for the rotation
+kernels K3 and K4, the powers of psi (`psi_powers`) and the constants of
+`garner_u32` (`garner_consts_shoup`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import _build, _u64
+from tfhe_tpu_torch._u64 import MASK32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +44,59 @@ def _bitrev(n: int) -> np.ndarray:
     return rev
 
 
+def _as_i32(vals, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(vals, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(device)
+
+
+def garner_consts_shoup(engine) -> torch.Tensor:
+    """(64,) int32 u32 constants of garner_u32 (layout in
+    csrc/ntt_device.cuh) and, at [52 + q] and [56 + q], the rotation
+    kernels' (K3, K4) per-prime floor(2^32 / p_q) and the Shoup companion
+    of 2^32 mod p_q; built once per engine."""
+    gs = getattr(engine, "_garner_consts_shoup", None)
+    if gs is None:
+        g = engine.garner
+        # each partial sum t * p_j + v_j must stay below 2 p_q (j < q)
+        if list(g.primes) != sorted(set(g.primes)) or len(g.primes) > 4:
+            raise ValueError(f"garner_u32 needs at most 4 ascending primes, got {g.primes}")
+        vals = [0] * 64
+        for i, p in enumerate(g.primes):
+            vals[i] = p
+            vals[44 + i] = g.h[i]
+            vals[52 + i], vals[56 + i] = 2**32 // p, (2**32 % p << 32) // p
+            if i:
+                vals[4 + i], vals[8 + i] = g.inv[i]
+                for j in range(i):
+                    vals[12 + 4 * i + j], vals[28 + 4 * i + j] = g.pmod[i][j]
+        prod = g.prod % 2**64
+        vals[48], vals[49] = prod & MASK32, prod >> 32
+        gs = _as_i32(vals, engine.device)
+        engine._garner_consts_shoup = gs
+    return gs
+
+
+def psi_powers(engine) -> torch.Tensor:
+    """(P, 2, 2N) int32, built once per engine: psi^t mod p for t in
+    [0, 2N) and their Shoup companions. Folded slot h holds evaluation
+    j = (h mod R) * C + h / R, at the root psi^(2j+1), so the rotation
+    kernels read NTT(X^e) at h as psi^((2j+1) e mod 2N), for e in [N, 2N)
+    too (psi^N = -1)."""
+    tab = getattr(engine, "_psi_powers", None)
+    if tab is None:
+        two_n = 2 * engine.n
+        rows = np.empty((engine.n_primes, 2, two_n), dtype=np.uint64)
+        for i, ntt in enumerate(engine.ntts):
+            pw = np.empty(two_n, dtype=np.uint64)
+            v = 1
+            for t in range(two_n):
+                pw[t] = v
+                v = v * ntt.psi % ntt.p
+            rows[i, 0], rows[i, 1] = pw, (pw << np.uint64(32)) // np.uint64(ntt.p)
+        tab = _as_i32(rows, engine.device)
+        engine._psi_powers = tab
+    return tab
+
+
 def kernel_tables(engine):
     """(tw, pp) on the engine's device, built once per engine:
     tw (P, 4, N) int32 = psi^bitrev(m), Shoup, psi^-bitrev(m), Shoup;
@@ -59,8 +116,7 @@ def kernel_tables(engine):
             tw[i, 2], tw[i, 3] = iw, (iw << np.uint64(32)) // np.uint64(p)
             ninv = pow(n, p - 2, p)
             pp[i, :3] = (p, ninv, (ninv << 32) // p)
-        as_i32 = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(engine.device)
-        tabs = (as_i32(tw), as_i32(pp))
+        tabs = (_as_i32(tw, engine.device), _as_i32(pp, engine.device))
         engine._kernel_tables = tabs
     return tabs
 
