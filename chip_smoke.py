@@ -5,8 +5,10 @@
 
 Builds the hand-written kernels from tfhe_tpu_torch/csrc with nvcc and
 holds each kernel against its plain PyTorch version on the card at the
-shapes the main paths give it (bit-exact; the forward NTT mod p; K3 and
-K4 also at ragged batches of 1, 3 and 64 ciphertexts). Then it drives,
+shapes the main paths give it (bit-exact; the forward NTT mod p; K1 and
+K2 also at the loop path's shapes, at ragged row counts of 1, 3 and 1537
+with the extreme int32 and u64 inputs, at N = 1024 and 2048; K3 and K4
+also at ragged batches of 1, 3 and 64 ciphertexts). Then it drives,
 through the entry points a user calls, at full width:
 
 1. the classic shortint path at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
@@ -16,13 +18,21 @@ through the entry points a user calls, at full width:
    the same steps, then a GROUP_4 keygen with 64 ciphertexts through the
    identity LUT;
 3. an encrypted ERC20 transfer at euint64 over the GROUP_3 key, batch 32
-   (le, select against a trivial zero, add_sub), checked against numpy.
+   (le, select against a trivial zero, add_sub), checked against numpy;
+4. the loop PBS at PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 (k=2,
+   N=1024; K1 and K2 once each per rotation step, 780 per apply_lut):
+   keygen, encrypt 512 values in [0, 2), apply_lut (identity and
+   v -> 1 - v), decrypt and check, then ms per apply_lut, per rotation
+   step, K1/K2's share of a step and, where torch.profiler sees the card,
+   the kernel time by name over one apply_lut (`pbs_loop:` lines).
 
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. It
 prints the card, build time, per-kernel times beside their bounds,
 keygen seconds, PBS/s, transfers/s, K3's and K4's times at 64, 128 and
-512 ciphertexts (`ms_by_batch`), a `{"kernels": [...]}` line, and last
+512 ciphertexts (`ms_by_batch`), K1's and K2's at the keygen and loop
+shapes (`ms_by_shape`), ptxas's registers and spills, a
+`{"kernels": [...]}` line, and last
 a `{"ok": true, "device": {...}}` line. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing a result.
 """
@@ -73,6 +83,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def self_device_us(ev) -> float:
+    """An event's own device time in us (the attribute's name moved between
+    torch releases)."""
+    us = getattr(ev, "self_device_time_total", None)
+    return getattr(ev, "self_cuda_time_total", 0) if us is None else us
+
+
+def kernel_ms(fn, reps: int, symbol: str) -> dict:
+    """A kernel's time: the mean device time per call of `fn` of the
+    kernels whose name holds `symbol`, from torch.profiler (the wrapper's
+    own tensor ops and launch cost excluded), beside the CUDA-event time of
+    the whole call (`wrapper_ms`). Where the profiler does not record every
+    launch, `ms` is the event time and `timed_by` says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wrapper = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if symbol in ev.key]
+    dev = sum(self_device_us(ev) for ev in evs) / 1e3 / reps
+    # a trace that lost some of the launches' events gives no kernel time
+    if sum(e.count for e in evs) == reps and dev > 0:
+        return dict(ms=dev, wrapper_ms=wrapper, timed_by="torch.profiler")
+    return dict(ms=wrapper, wrapper_ms=wrapper, timed_by="cuda events")
+
+
+def short(kernel: str) -> str:
+    """A kernel's name without its namespaces and launch parameters."""
+    for junk in ("void ", "at::native::", "(anonymous namespace)::", "at::detail::", "c10::"):
+        kernel = kernel.replace(junk, "")
+    return kernel[:110]
+
+
 def host_ms(fn) -> float:
     import torch
 
@@ -91,6 +138,16 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def ntt_ops(rows: int, n_pr: int, n: int) -> float:
     return rows * n_pr * ((n // 2) * int(math.log2(n)) * OPS_BUTTERFLY + n * OPS_MULMOD)
+
+
+def k1_bound(rows: int, n_pr: int, n: int, in_bytes: int) -> tuple[float, str]:
+    """Rows of N values (in_bytes each) in, (rows, P, N) u32 residues out."""
+    return bound_ms(rows * n * in_bytes + rows * n_pr * n * 4, ntt_ops(rows, n_pr, n))
+
+
+def k2_bound(rows: int, n_pr: int, n: int) -> tuple[float, str]:
+    """(rows, P, N) u32 residues in and out, the N^-1 scaling included."""
+    return bound_ms(2 * rows * n_pr * n * 4, ntt_ops(rows, n_pr, n) + rows * n_pr * n * OPS_MULMOD)
 
 
 def cmux_ops(batch: int, steps: int, n_pr: int, n: int) -> float:
@@ -143,6 +200,7 @@ def main() -> int:
     PARAMS = tp.PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
     MB3 = tp.PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
     MB4 = tp.PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    LOOP = tp.PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -152,12 +210,14 @@ def main() -> int:
 
     # -- build ----------------------------------------------------------------
     build_s = _build.build_all()
-    ptxas = []
-    for name in _build.SOURCES:
-        for line in _build.log_path(name).read_text().splitlines() if _build.log_path(name).exists() else []:
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                ptxas.append(line.strip())
-    print(f"build_s: {build_s:.3f} (" + "; ".join(ptxas) + ")", flush=True)
+
+    def ptxas_of(name):
+        log = _build.log_path(name)
+        return [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+                if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+
+    print(f"build_s: {build_s:.3f} (" + "; ".join(ln for nm in _build.SOURCES for ln in ptxas_of(nm)) + ")",
+          flush=True)
 
     wrappers = {"K1": ntt_cuda.forward, "K2": ntt_cuda.inverse, "K3": brc.cmux_steps, "K4": mbc.group_steps}
 
@@ -208,39 +268,75 @@ def main() -> int:
     check(k2_512 == 0, f"K2 vs plain on the K1 output (err {k2_512})")
     print(f"check K1 (512, {n}) nb=3 err {e3}, nb=4 err {e4}; K2 (512, {n_pr}, {n}) err {k2_512}", flush=True)
 
-    # K1 at the main path's largest call: a monomial table, 2N small rows
+    # K1 at the keygen's largest call: a monomial table, 2N small rows
     polys = rand_i32((2 * n, n), -1, 2)
     k1_err = mod_err(eng.forward_small(polys), eng.forward_small_plain(polys))
     check(k1_err == 0, f"K1 vs plain at (2N, N) (err {k1_err})")
-    k1_ms = cuda_ms(lambda: eng.forward_small(polys), 10)
-    k1_plain_ms = cuda_ms(lambda: eng.forward_small_plain(polys), 2)
-    b, o = bound_ms(2 * n * n * 4 + 2 * n * n_pr * n * 4, ntt_ops(2 * n, n_pr, n))
-    kern["K1"] = dict(
-        name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
-        replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=k1_err, ms=k1_ms,
-        plain_ms=k1_plain_ms, bound_ms=b, bound_by=o, library_ms=None, path="classic",
-        shape=f"({2 * n}, {n}) int32 -> ({2 * n}, {n_pr}, {n})",
-    )
+    k1_keygen = dict(**kernel_ms(lambda: eng.forward_small(polys), 10, "k1_forward"),
+                     plain_ms=cuda_ms(lambda: eng.forward_small_plain(polys), 2),
+                     shape=f"({2 * n}, {n}) int32 -> ({2 * n}, {n_pr}, {n})")
+    k1_keygen["bound_ms"], k1_keygen["bound_by"] = k1_bound(2 * n, n_pr, n, 4)
     # K1 on u64 rows (forward_u64: GGSW rows of the bootstrap key)
     u = rand_u64((4 * PARAMS.lwe_dimension, n))
     k1u_err = mod_err(eng.forward_u64(u), eng.forward_u64_plain(u))
     check(k1u_err == 0, f"K1 (u64 input) vs plain (err {k1u_err})")
-    # K2 at the classic path's call: GLWE encryption of the bootstrap key
+    # K2 at the classic keygen's call: GLWE encryption of the bootstrap key
     rows2 = 2 * PARAMS.lwe_dimension
     f2 = eng.forward_u64(rand_u64((rows2, n)))
     k2_err = exact_err(ntt_cuda.inverse(eng, f2), eng.inverse_plain(f2))
     check(k2_err == 0, f"K2 vs plain at ({rows2}, P, N) (err {k2_err})")
-    k2_ms = cuda_ms(lambda: ntt_cuda.inverse(eng, f2), 10)
-    k2_plain_ms = cuda_ms(lambda: eng.inverse_plain(f2), 2)
-    b, o = bound_ms(2 * rows2 * n_pr * n * 4, ntt_ops(rows2, n_pr, n) + rows2 * n_pr * n * OPS_MULMOD)
-    kern["K2"] = dict(
-        name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
-        replaces="tfhe_tpu/ops/pallas_ntt.py:518", max_abs_err=k2_err, ms=k2_ms,
-        plain_ms=k2_plain_ms, bound_ms=b, bound_by=o, library_ms=None, path="classic",
-        shape=f"({rows2}, {n_pr}, {n})",
-    )
+    k2_keygen = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng, f2), 10, "k2_inverse"),
+                     plain_ms=cuda_ms(lambda: eng.inverse_plain(f2), 2), shape=f"({rows2}, {n_pr}, {n})")
+    k2_keygen["bound_ms"], k2_keygen["bound_by"] = k2_bound(rows2, n_pr, n)
     print(f"check K1 ({2 * n}, {n}) err {k1_err}, u64 ({4 * PARAMS.lwe_dimension}, {n}) err {k1u_err}; "
           f"K2 ({rows2}, {n_pr}, {n}) err {k2_err}", flush=True)
+    del x3, x4, f4, polys, u, f2
+
+    # K1 and K2 at the loop path's shapes (PARAM_MESSAGE_1_CARRY_1: k + 1 = 3
+    # digit rows per ciphertext at N = 1024, batch 512), then at ragged row
+    # counts and the extreme inputs at N = 1024 and 2048
+    n11 = LOOP.polynomial_size
+    eng11 = get_folded_engine(n11, dev)
+    rows11 = BATCH * (LOOP.glwe_dimension + 1) * LOOP.pbs.level
+    half = 1 << (LOOP.pbs.base_log - 1)
+    digits = rand_i32((BATCH, LOOP.glwe_dimension + 1, n11), -half, half)
+    fd = eng11.forward_small(digits)
+    k1_loop_err = mod_err(fd, eng11.forward_small_plain(digits))
+    mac = (rand_i32((BATCH, LOOP.glwe_dimension + 1, n_pr, n11), 0, 2**31) % (2 * primes)).to(torch.int32)
+    k2_loop_err = exact_err(ntt_cuda.inverse(eng11, mac), eng11.inverse_plain(mac))
+    check(k1_loop_err == 0 and k2_loop_err == 0,
+          f"K1/K2 vs plain at the loop path's shapes (err {k1_loop_err}, {k2_loop_err})")
+    k1_loop = dict(**kernel_ms(lambda: eng11.forward_small(digits), 20, "k1_forward"),
+                   plain_ms=cuda_ms(lambda: eng11.forward_small_plain(digits), 2),
+                   shape=f"({rows11}, {n11}) int32 -> ({rows11}, {n_pr}, {n11})")
+    k1_loop["bound_ms"], k1_loop["bound_by"] = k1_bound(rows11, n_pr, n11, 4)
+    k2_loop = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng11, mac), 20, "k2_inverse"),
+                   plain_ms=cuda_ms(lambda: eng11.inverse_plain(mac), 2), shape=f"({rows11}, {n_pr}, {n11})")
+    k2_loop["bound_ms"], k2_loop["bound_by"] = k2_bound(rows11, n_pr, n11)
+    del digits, fd, mac
+    edge = {}
+    i32_ext = torch.tensor([2**31 - 1, -(2**31) + 1, -(2**31), -1, 0, 1], device=dev, dtype=torch.int32)
+    u64_ext = torch.tensor([0, -1, 1, 2**32 - 1, 2**32, -(2**63)], device=dev, dtype=torch.int64)  # -1 is 2^64 - 1
+    for e_ in (eng11, eng):
+        nn = e_.n
+        for rows in (1, 3, 1537):
+            if rows == 1537 and nn != n11:
+                continue
+            xi = rand_i32((rows, nn), -(2**31), 2**31)
+            xi[0, :6] = i32_ext
+            xu = rand_u64((rows, nn))
+            xu[0, :6] = u64_ext
+            fi = ntt_cuda.forward(e_, xi, small=True)
+            edge[f"N{nn}/{rows}r"] = (
+                mod_err(fi, e_.forward_i32_plain(xi)),
+                mod_err(ntt_cuda.forward(e_, xu, small=False), e_.forward_u64_plain(xu)),
+                exact_err(ntt_cuda.inverse(e_, fi), e_.inverse_plain(fi)),
+            )
+    check(all(v == (0, 0, 0) for v in edge.values()),
+          f"K1 (int32, u64) and K2 vs plain at ragged rows with extreme inputs {edge}")
+    print(f"check K1/K2 at the loop shapes ({rows11}, {n11}): err {k1_loop_err}, {k2_loop_err}; "
+          f"ragged rows with extreme inputs, (K1 i32, K1 u64, K2) err {edge}", flush=True)
+    print("ptxas K1/K2: " + "; ".join(ln for ln in ptxas_of("ntt")), flush=True)
 
     # K3: one launch of 4 steps, random accumulators and key rows, at ragged
     # batches of 1, 3 and 64 ciphertexts (the grid holds one block per
@@ -467,10 +563,104 @@ def main() -> int:
           f"{ERC20_BATCH / erc20_ms * 1e3:.3f} transfers/s, {pbs_per_transfer:.1f} PBS per transfer (counted); "
           f"{int(moved.astype(bool).sum())} of {ERC20_BATCH} paid; launches {paths['erc20']}", flush=True)
 
+    del ck, sk, c, e_bal, e_amt, new_from, new_to
+
+    # -- path 4: the loop PBS at PARAM_MESSAGE_1_CARRY_1 (k=2, N=1024) --------
+    # Not level 1 with k = 1, so every PBS takes the loop of external
+    # products: K1 on the gadget digits and K2 after the MAC, once per step.
+    reset_counts()
+    t0 = time.perf_counter()
+    ck, sk = si.keygen(LOOP, seed=SEED + 7, device="cuda")
+    torch.cuda.synchronize()
+    loop_keygen_s = time.perf_counter() - t0
+    keygen_counts = read_counts()
+    check(not bt.uses_fused_cmux(sk.bsk, LOOP.glwe_dimension + 1), "the 1_1 key takes the loop of external products")
+    v2 = torch.arange(BATCH, device=dev) % LOOP.message_modulus
+    c = si.encrypt(ck, v2, FheRng(SEED + 8, "cuda"))
+    lut_id = si.generate_lut(LOOP, lambda v: v, "cuda")
+    lut_flip = si.generate_lut(LOOP, lambda v: (1 - v) % LOOP.message_modulus, "cuda")
+    ident = si.apply_lut(sk, c, lut_id, LOOP.message_modulus - 1)
+    flip = si.apply_lut(sk, c, lut_flip, LOOP.message_modulus - 1)
+    paths["pbs_loop"] = read_counts()
+    per_lut = {k: (paths["pbs_loop"][k] - keygen_counts[k]) / 2 for k in wrappers}
+    check(bool((si.decrypt(ck, ident) == v2).all()), "pbs_loop: identity LUT decrypts to the inputs")
+    check(bool((si.decrypt(ck, flip) == 1 - v2).all()), "pbs_loop: v -> 1 - v decrypts")
+    steps11 = LOOP.lwe_dimension
+    check(per_lut["K1"] == steps11 and per_lut["K2"] == steps11 and per_lut["K3"] == 0 and per_lut["K4"] == 0,
+          f"pbs_loop: K1 and K2 launched {steps11} times per apply_lut, K3/K4 never ({per_lut})")
+    print(f"pbs_loop path ({LOOP.name}, n={steps11}, k={LOOP.glwe_dimension}, N={n11}, "
+          f"PBS level {LOOP.pbs.level} / base_log {LOOP.pbs.base_log}): keygen_s {loop_keygen_s:.3f}; "
+          f"{BATCH} ct identity/1-v decrypt ok; launches {paths['pbs_loop']} (keygen {keygen_counts}, "
+          f"per apply_lut {per_lut})", flush=True)
+
+    loop_ms = cuda_ms(lambda: si.apply_lut(sk, c, lut_flip, 1), 2)
+    small = keyswitch(c.ct, sk.ksk)
+    rot_ms = cuda_ms(lambda: bt.blind_rotate(lut_flip, small, sk.bsk, eng11), 1)
+    step_ms = rot_ms / steps11
+    share = (k1_loop["ms"] + k2_loop["ms"]) / step_ms
+    print(f"pbs_loop: batch {BATCH}, {loop_ms:.3f} ms per apply_lut, {BATCH / loop_ms * 1e3:.1f} PBS/s; "
+          f"blind rotation {rot_ms:.3f} ms, {step_ms:.4f} ms per rotation step; "
+          f"K1 {k1_loop['ms']:.4f} ms (bound {k1_loop['bound_ms']:.4f}, wrapper {k1_loop['wrapper_ms']:.4f}), "
+          f"K2 {k2_loop['ms']:.4f} ms (bound {k2_loop['bound_ms']:.4f}, wrapper {k2_loop['wrapper_ms']:.4f}) "
+          f"at the step's shapes, {k1_loop['timed_by']}: {100 * share:.1f} % of a step", flush=True)
+
+    # kernel time by name over one apply_lut, where the profiler sees the card
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        si.apply_lut(sk, c, lut_flip, 1)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_op = {}, {}
+    for ev in prof.key_averages():
+        us = self_device_us(ev)
+        # kernels (device-side events) by name; the torch ops that launched
+        # them report the same time, kept apart as the step's breakdown by op
+        if us > 0:
+            on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+            (by_name if on_device else by_op)[ev.key] = (us / 1e3, ev.count)
+    if by_name:
+        dev_ms = sum(t for t, _ in by_name.values())
+        launches = sum(cnt for _, cnt in by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"pbs_loop profile: one apply_lut, {launches} kernel launches ({launches / steps11:.1f} per step), "
+              f"device busy {dev_ms:.3f} ms: {100 * dev_ms / window_ms:.1f} % of the {window_ms:.3f} ms window "
+              f"(profiler on), {100 * dev_ms / loop_ms:.1f} % of the untraced {loop_ms:.3f} ms; by kernel: "
+              + "; ".join(f"{short(name)} {t:.3f} ms x{cnt}" for name, (t, cnt) in top), flush=True)
+        ops = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
+        print("pbs_loop profile: device time by torch op: "
+              + "; ".join(f"{name} {t:.3f} ms x{cnt}" for name, (t, cnt) in ops), flush=True)
+        for key, sym in (("K1", "k1_forward"), ("K2", "k2_inverse")):
+            t, cnt = [sum(v[i] for nm, v in by_name.items() if sym in nm) for i in (0, 1)]
+            print(f"pbs_loop profile: {key} on the path {t:.3f} ms over {cnt} launches "
+                  f"({100 * t / dev_ms:.1f} % of device time)", flush=True)
+    else:
+        print("pbs_loop profile: torch.profiler recorded no device-side kernel events; the times above are "
+              "CUDA events", flush=True)
+    kern["K1"] = dict(
+        name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
+        replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
+                                                                   *(v[0] for v in edge.values()),
+                                                                   *(v[1] for v in edge.values())),
+        path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop}, **{
+            f: k1_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
+    )
+    kern["K2"] = dict(
+        name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
+        replaces="tfhe_tpu/ops/pallas_ntt.py:518",
+        max_abs_err=max(k2_512, k2_err, k2_loop_err, *(v[2] for v in edge.values())),
+        path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop}, **{
+            f: k2_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
+    )
+    del ck, sk, c, ident, flip, small
+
     # -- summary ----------------------------------------------------------------
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "equal", "ms",
              "plain_ms", "plain_shape", "bound_ms", "bound_by", "library_ms", "path", "launches_by_path", "shape",
-             "ms_by_batch")
+             "ms_by_batch", "ms_by_shape")
+    kern = dict(sorted(kern.items()))
     for key, k in kern.items():
         k["launches"] = paths[k["path"]][key]
         k["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}

@@ -12,11 +12,13 @@
   (digits per prime, register-round NTTs, EP x (m - 1) at folded slots,
   inverse rounds, the cluster's Garner shares, acc +=) equals
   `one_step_plain` bit for bit;
-* with JAX keys carried across (convert.py), the port's blind_rotate
-  against bt._blind_rotate_fused (the test_fused_blind_rotate setup:
-  N=256, n=12, k=1, level 1 / base_log 23, 5 ciphertexts), and the
-  external-product loop of other shapes against the JAX scan; the carried
-  keys land on the card unless the CPU is asked for.
+* with JAX keys carried across (convert.py), the port's blind_rotate and
+  keyswitch_pbs against JAX keyswitch -> bt._blind_rotate_fused (->
+  sample_extract), computed once (the test_fused_blind_rotate setup:
+  N=256, n=12, k=1, level 1 / base_log 23, 6 ciphertexts); apply_function
+  decrypting like the JAX package's; the external-product loop of other
+  shapes against the JAX scan; the carried keys land on the card unless
+  the CPU is asked for.
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ import torch
 from tfhe_tpu import params as jp
 from tfhe_tpu.core import bootstrap as jbt
 from tfhe_tpu.core.lwe import keyswitch as jax_keyswitch
+from tfhe_tpu.core.lwe import sample_extract as jax_sample_extract
 from tfhe_tpu.models import shortint as jsi
 from tfhe_tpu.ops.folded_ntt import get_folded_engine as jax_engine
 from tfhe_tpu.ops.pallas_blind_rotate import bsk_to_step_layout as jax_step_layout
@@ -222,20 +225,62 @@ def fused_setup():
     return params, ck, sk, tck, tsk
 
 
-def test_blind_rotate_matches_fused_reference(fused_setup):
-    params, ck, sk, tck, tsk = fused_setup
-    vals = jnp.arange(5, dtype=jnp.uint64) % jnp.uint64(4)
-    small = jax_keyswitch(jsi.encrypt(ck, vals, JaxRng(4)).ct, sk.ksk)
-    lut = jsi.generate_lut(params, np.arange(16, dtype=np.uint64))
+@pytest.fixture(scope="module")
+def fused_reference(fused_setup):
+    """Six big-key ciphertexts, a LUT, and the JAX package's keyswitch ->
+    _blind_rotate_fused of them (the Pallas kernel in interpret mode, run
+    once for the tests below)."""
+    params, ck, sk, _, _ = fused_setup
+    vals = jnp.asarray([0, 1, 2, 3, 1, 2], dtype=jnp.uint64)
+    ct = jsi.encrypt(ck, vals, JaxRng(6))
+    lut = jsi.generate_lut(params, np.asarray([(3 * v) % 4 for v in range(16)], dtype=np.uint64))
+    small = jax_keyswitch(ct.ct, sk.ksk)
     two_n = 2 * N
     ms = mod_switch(small, int(math.log2(two_n)))
     acc = negacyclic_monomial_rotate(lut, (jnp.uint64(two_n) - ms[..., -1])[..., None])
     acc = jnp.broadcast_to(acc, ms[..., -1].shape + (2, N))
-    want = jbt._blind_rotate_fused(acc, jnp.moveaxis(ms[..., :-1], -1, 0), sk.bsk, jsi.engine_for(params))
-    t_lut = tsi.generate_lut(tck.params, np.arange(16, dtype=np.uint64), device="cpu")
+    rotated = jbt._blind_rotate_fused(acc, jnp.moveaxis(ms[..., :-1], -1, 0), sk.bsk, jsi.engine_for(params))
+    return vals, ct, lut, small, np.asarray(rotated)
+
+
+def test_blind_rotate_matches_fused_reference(fused_setup, fused_reference):
+    _, _, _, tck, tsk = fused_setup
+    _, _, lut, small, rotated = fused_reference
     assert tbt.uses_fused_cmux(tsk.bsk, 2)
-    got = tbt.blind_rotate(t_lut, convert.u64_tensor(small), tsk.bsk, tsi.engine_for(tck.params, "cpu"))
-    np.testing.assert_array_equal(_u64.u64_to_numpy(got), np.asarray(want))
+    got = tbt.blind_rotate(
+        convert.u64_tensor(lut), convert.u64_tensor(small), tsk.bsk, tsi.engine_for(tck.params, "cpu")
+    )
+    np.testing.assert_array_equal(_u64.u64_to_numpy(got), rotated)
+
+
+def test_keyswitch_pbs_matches_reference(fused_setup, fused_reference):
+    """The port's keyswitch_pbs equals JAX keyswitch -> _blind_rotate_fused
+    -> sample_extract bit for bit."""
+    _, _, _, _, tsk = fused_setup
+    _, ct, lut, _, rotated = fused_reference
+    want = np.asarray(jax_sample_extract(jnp.asarray(rotated), 0))
+    got = tbt.keyswitch_pbs(
+        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(N, "cpu")
+    )
+    np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
+
+
+def test_apply_function_decrypts_like_reference(fused_setup, fused_reference):
+    """JAX's CPU default (scan branch) and the port (fused form) differ by
+    noise only: both decrypt to f(v)."""
+    params, ck, sk, tck, tsk = fused_setup
+    vals, ct, _, _, _ = fused_reference
+    f = lambda v: (v + 1) % 4
+    ref = jsi.apply_function(sk, ct, f)
+    ours = tsi.apply_function(
+        tsk, tsi.Ciphertext(ct=convert.u64_tensor(ct.ct), params=tck.params, degree=ct.degree, noise_level=1), f
+    )
+    assert ours.degree == ref.degree
+    want = np.asarray(jsi.decrypt(ck, ref))
+    np.testing.assert_array_equal(want, (np.asarray(vals) + 1) % 4)
+    np.testing.assert_array_equal(tsi.decrypt(tck, ours).numpy(), want)
+    as_ref = jsi.Ciphertext(ct=jnp.asarray(_u64.u64_to_numpy(ours.ct)), params=params, degree=3, noise_level=1)
+    np.testing.assert_array_equal(np.asarray(jsi.decrypt(ck, as_ref)), want)
 
 
 def test_keys_from_reference_default_to_the_card(fused_setup):

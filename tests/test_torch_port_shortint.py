@@ -1,9 +1,12 @@
-"""The classic shortint slice of tfhe_tpu_torch as a whole, on the CPU.
+"""The shortint slice of tfhe_tpu_torch as a whole, on the CPU.
 
-* With JAX keys carried across, the port's keyswitch_pbs equals, bit for
-  bit, JAX keyswitch -> _blind_rotate_fused -> sample_extract; the JAX
-  CPU default (the lax.scan branch, equal to the fused form up to noise)
-  decrypts to the same values as the port.
+* The loop path at k=2 (a k=2, level-1 toy set shaped like
+  PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128): with JAX keys carried
+  across, the port's blind_rotate and keyswitch_pbs equal JAX's lax.scan
+  of external products bit for bit; the port's own k=2 keys decrypt right.
+  (The fused level-1 k=1 form against the JAX package is tested in
+  test_torch_port_blind_rotate.py, on the same carried keys as its other
+  tests.)
 * With its own keygen, apply_lut, bivariate_pbs and mul decrypt to the
   clear results, and degree bookkeeping matches the JAX package.
 * The package imports neither jax nor tfhe_tpu, and its entry points
@@ -11,7 +14,6 @@
 """
 
 import dataclasses
-import math
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +29,6 @@ from tfhe_tpu.core.lwe import keyswitch as jax_keyswitch
 from tfhe_tpu.core.lwe import sample_extract as jax_sample_extract
 from tfhe_tpu.models import shortint as jsi
 from tfhe_tpu.rng import FheRng as JaxRng
-from tfhe_tpu.torus import mod_switch, negacyclic_monomial_rotate
 from tfhe_tpu_torch import _u64, convert
 from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch.core import bootstrap as tbt
@@ -52,53 +53,60 @@ REPO = Path(__file__).resolve().parents[1]
 N = 256
 
 
-@pytest.fixture(scope="module")
-def carried():
-    params = dataclasses.replace(
-        jp.TOY_SHORTINT,
-        name="FUSED_TEST",
-        lwe_dimension=12,
-        glwe_dimension=1,
-        polynomial_size=N,
-        pbs=jp.GadgetParams(base_log=23, level=1),
+def _loop_k2_params(pk):
+    """A k=2, level-1 variant of TOY_SHORTINT (test data only): the shape of
+    PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 (k=2, level 1, base_log 17)
+    at N = 128, which takes the loop of external products."""
+    return dataclasses.replace(
+        pk.TOY_SHORTINT, name="LOOP_K2", glwe_dimension=2, pbs=pk.GadgetParams(base_log=17, level=1)
     )
-    ck, sk = jsi.keygen(params, seed=2)
+
+
+@pytest.fixture(scope="module")
+def loop_k2():
+    """JAX keys of the k=2 set carried across, six ciphertexts, a LUT and
+    JAX keyswitch -> blind_rotate (its lax.scan of external products)."""
+    params = _loop_k2_params(jp)
+    ck, sk = jsi.keygen(params, seed=11)
     tck, tsk = convert.keys_from_reference(ck, sk, device="cpu")
-    vals = jnp.asarray([0, 1, 2, 3, 1, 2], dtype=jnp.uint64)
-    ct = jsi.encrypt(ck, vals, JaxRng(6))
-    return params, ck, sk, tck, tsk, vals, ct
-
-
-def test_keyswitch_pbs_matches_reference(carried):
-    params, ck, sk, tck, tsk, vals, ct = carried
-    lut = jsi.generate_lut(params, np.asarray([(3 * v) % 4 for v in range(16)], dtype=np.uint64))
+    vals = jnp.asarray([0, 1, 2, 3, 2, 1], dtype=jnp.uint64)
+    ct = jsi.encrypt(ck, vals, JaxRng(12))
+    lut = jsi.generate_lut(params, np.asarray([(3 * v + 1) % 4 for v in range(16)], dtype=np.uint64))
     small = jax_keyswitch(ct.ct, sk.ksk)
-    ms = mod_switch(small, int(math.log2(2 * N)))
-    acc = negacyclic_monomial_rotate(lut, (jnp.uint64(2 * N) - ms[..., -1])[..., None])
-    acc = jnp.broadcast_to(acc, ms[..., -1].shape + (2, N))
-    rotated = jbt._blind_rotate_fused(acc, jnp.moveaxis(ms[..., :-1], -1, 0), sk.bsk, jsi.engine_for(params))
-    want = np.asarray(jax_sample_extract(rotated, 0))
+    rotated = np.asarray(jbt.blind_rotate(lut, small, sk.bsk, jsi.engine_for(params)))
+    return params, ck, tck, tsk, vals, ct, lut, small, rotated
+
+
+def test_loop_k2_blind_rotate_matches_reference(loop_k2):
+    _, _, tck, tsk, _, _, lut, small, rotated = loop_k2
+    assert tsk.bsk.bsk_ntt.shape[1:3] == (3, 3) and not tbt.uses_fused_cmux(tsk.bsk, 3)
+    got = tbt.blind_rotate(
+        convert.u64_tensor(lut), convert.u64_tensor(small), tsk.bsk, tsi.engine_for(tck.params, "cpu")
+    )
+    np.testing.assert_array_equal(_u64.u64_to_numpy(got), rotated)
+
+
+def test_loop_k2_keyswitch_pbs_matches_reference(loop_k2):
+    params, ck, tck, tsk, vals, ct, lut, _, rotated = loop_k2
+    want = np.asarray(jax_sample_extract(jnp.asarray(rotated), 0))
     got = tbt.keyswitch_pbs(
-        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(N, "cpu")
+        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(128, "cpu")
     )
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
+    out = tsi.Ciphertext(ct=got, params=tck.params, degree=3, noise_level=1)
+    np.testing.assert_array_equal(tsi.decrypt(tck, out).numpy(), (3 * np.asarray(vals) + 1) % 4)
 
 
-def test_apply_function_decrypts_like_reference(carried):
-    """JAX's CPU default (scan branch) and the port (fused form) differ by
-    noise only: both decrypt to f(v)."""
-    params, ck, sk, tck, tsk, vals, ct = carried
-    f = lambda v: (v + 1) % 4
-    ref = jsi.apply_function(sk, ct, f)
-    ours = tsi.apply_function(
-        tsk, tsi.Ciphertext(ct=convert.u64_tensor(ct.ct), params=tck.params, degree=ct.degree, noise_level=1), f
-    )
-    assert ours.degree == ref.degree
-    want = np.asarray(jsi.decrypt(ck, ref))
-    np.testing.assert_array_equal(want, (np.asarray(vals) + 1) % 4)
-    np.testing.assert_array_equal(tsi.decrypt(tck, ours).numpy(), want)
-    as_ref = jsi.Ciphertext(ct=jnp.asarray(_u64.u64_to_numpy(ours.ct)), params=params, degree=3, noise_level=1)
-    np.testing.assert_array_equal(np.asarray(jsi.decrypt(ck, as_ref)), want)
+def test_loop_k2_own_keygen_decrypts():
+    params = _loop_k2_params(tp)
+    ck, sk = tsi.keygen(params, seed=13, device="cpu")
+    assert sk.bsk.bsk_ntt.shape[1:3] == (3, 3) and not tbt.uses_fused_cmux(sk.bsk, 3)
+    vals = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0])
+    c = tsi.encrypt(ck, vals, FheRng(14, device="cpu"))
+    ident = tsi.apply_lut(sk, c, tsi.generate_lut(params, lambda v: v, device="cpu"), 3)
+    assert torch.equal(tsi.decrypt(ck, ident), vals)
+    flip = tsi.apply_function(sk, c, lambda v: (1 - v) % 4)
+    assert torch.equal(tsi.decrypt(ck, flip), (1 - vals) % 4)
 
 
 @pytest.fixture(scope="module")

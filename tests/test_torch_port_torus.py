@@ -103,8 +103,21 @@ def test_unsigned_compare_and_shift():
     np.testing.assert_array_equal(_u64.mulhi_u32(torch.from_numpy(lo), torch.from_numpy(hi)).numpy(), want)
 
 
-@pytest.mark.parametrize("name", sorted(tp.registry()))
+# Reference sets whose modules (boolean, GLWE matmul) are not ported yet.
+PENDING_PARAMS = {"BOOLEAN_PARAMS_128", "TOY_BOOLEAN", "PARAMS_8B_2048", "TOY_MATMUL"}
+
+
+def test_params_missing_are_exactly_the_pending_sets():
+    assert set(jp.registry()) - set(tp.registry()) == PENDING_PARAMS
+    assert set(tp.registry()) <= set(jp.registry())
+
+
+@pytest.mark.parametrize("name", sorted(jp.registry()))
 def test_params_match_reference(name):
+    if name in PENDING_PARAMS:
+        with pytest.raises(KeyError):
+            tp.by_name(name)
+        return
     ours = tp.by_name(name)
     ref = jp.by_name(name)
     assert ours == params_from_reference(ref)

@@ -1,17 +1,18 @@
 // Device functions shared by the NTT kernels (ntt.cu), the fused CMux
 // kernel (blind_rotate.cu) and the multi-bit group-step kernel
-// (multibit.cu): u32 Shoup arithmetic mod a prime p < 2^30, in-shared-memory
-// negacyclic NTTs of one block (K1/K2; the rotation kernels take the
-// register rounds of rotate_device.cuh), and the Garner reconstruction
-// garner_u32 of K3 and K4.
+// (multibit.cu): u32 Shoup arithmetic mod a prime p < 2^30, the bit
+// reversal of the folded layout, and the Garner reconstruction garner_u32
+// of K3 and K4. The NTT itself, in register rounds on padded rows, is in
+// rotate_device.cuh.
 //
 // Forward: Cooley-Tukey over the bit-reversed powers of psi (the primitive
 // 2N-th root), natural order in, bit-reversed order out: slot k holds
 // a(psi^(2j+1)) with j = bitrev(k). Inverse: Gentleman-Sande over the
 // bit-reversed powers of psi^-1, bit-reversed order in, natural order out,
 // then a multiply by N^-1. The engine's *folded layout* puts evaluation j at
-// h = (j mod C) * R + j / C (N = R * C); `folded_slot` maps k to that h, so
-// the kernels read and write the folded layout directly.
+// h = (j mod C) * R + j / C (N = R * C), so folded slot h = t R + s holds
+// NTT slot bitrev(s C + t); the kernels read and write the folded layout
+// directly.
 //
 // Twiddle tables, per prime, 4 rows of N u32: psi_rev, its Shoup companions,
 // psi_inv_rev, its Shoup companions. Prime params, per prime, 4 u32:
@@ -39,68 +40,10 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) 
   return a >= b ? a - b : a + p - b;
 }
 
-__device__ __forceinline__ int folded_slot(int k, int logn, int logc) {
-  int j = (int)(__brev((unsigned)k) >> (32 - logn));
-  return ((j & ((1 << logc) - 1)) << (logn - logc)) + (j >> logc);
-}
-
-// The NTT slot of evaluation j. Folded slot h = t R + s holds evaluation
-// j = s C + t, so folded_slot(bitrev(s C + t)) == h.
+// The NTT slot of evaluation j: slot k holds evaluation bitrev(k), and
+// folded slot h = t R + s holds evaluation s C + t.
 __device__ __forceinline__ int bitrev(int j, int logn) {
   return (int)(__brev((unsigned)j) >> (32 - logn));
-}
-
-// Forward NTT of `rows` consecutive length-n rows in shared memory, all
-// values canonical. Every thread of the block must call it; it ends with a
-// barrier. The caller puts a barrier between filling buf and the call.
-__device__ void ntt_fwd_rows(uint32_t* buf, int rows, int logn, const uint32_t* psi,
-                             const uint32_t* psi_s, uint32_t p) {
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const int total = rows * half;
-  for (int m = 1, logt = logn - 1; m < n; m <<= 1, --logt) {
-    const int t = 1 << logt;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      uint32_t* a = buf + (b >> (logn - 1)) * n;
-      const int bb = b & (half - 1);
-      const int i = bb >> logt;
-      const int j = (i << (logt + 1)) + (bb & (t - 1));
-      const uint32_t u = a[j];
-      const uint32_t v = mul_shoup(a[j + t], psi[m + i], psi_s[m + i], p);
-      a[j] = add_mod(u, v, p);
-      a[j + t] = sub_mod(u, v, p);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse NTT of `rows` consecutive rows, bit-reversed order in, natural out,
-// scaled by N^-1. Same calling rules as ntt_fwd_rows.
-__device__ void ntt_inv_rows(uint32_t* buf, int rows, int logn, const uint32_t* ipsi,
-                             const uint32_t* ipsi_s, uint32_t p, uint32_t ninv,
-                             uint32_t ninv_s) {
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const int total = rows * half;
-  for (int m = n, logt = 0; m > 1; m >>= 1, ++logt) {
-    const int t = 1 << logt;
-    const int h = m >> 1;
-    for (int b = threadIdx.x; b < total; b += blockDim.x) {
-      uint32_t* a = buf + (b >> (logn - 1)) * n;
-      const int bb = b & (half - 1);
-      const int i = bb >> logt;
-      const int j = (i << (logt + 1)) + (bb & (t - 1));
-      const uint32_t u = a[j];
-      const uint32_t v = a[j + t];
-      a[j] = add_mod(u, v, p);
-      a[j + t] = mul_shoup(sub_mod(u, v, p), ipsi[h + i], ipsi_s[h + i], p);
-    }
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < rows * n; idx += blockDim.x) {
-    buf[idx] = mul_shoup(buf[idx], ninv, ninv_s, p);
-  }
-  __syncthreads();
 }
 
 // Garner in u32 Shoup arithmetic: the canonical residues r[q], q <
@@ -148,12 +91,6 @@ __device__ __forceinline__ uint64_t garner_u32(const uint32_t (&r)[4], int nprim
     }
   }
   return neg ? x - (((uint64_t)gs[49] << 32) | gs[48]) : x;
-}
-
-__host__ __device__ inline int ntt_threads(int work) {
-  // one thread per butterfly up to 512 threads, at least one warp
-  int t = work < 512 ? work : 512;
-  return t < 32 ? 32 : t;
 }
 
 }  // namespace tfhe

@@ -2,7 +2,8 @@
 // K4 (multibit.cu), which share one design: one block per (ciphertext,
 // prime) in a cluster of P blocks, the block's two residue rows padded in
 // shared memory, the NTT in register rounds of three stages, and the
-// level-1 digit reduced mod each prime with no `%`.
+// level-1 digit reduced mod each prime with no `%`. The NTT kernels K1 and
+// K2 (ntt.cu) run the same rounds on two rows of one prime.
 #pragma once
 
 #include "ntt_device.cuh"
@@ -32,7 +33,7 @@ __device__ __forceinline__ uint32_t shoup_companion(uint32_t w, uint32_t p, uint
   return w * ws1 + q + (w * c1 - q * p >= p ? 1u : 0u);
 }
 
-// The rotation kernels' residue rows are padded by one word every 32, so that the strided
+// The kernels' residue rows are padded by one word every 32, so that the strided
 // accesses of the NTT rounds and of the pointwise step fall into distinct
 // shared-memory banks.
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
@@ -53,11 +54,13 @@ __device__ __forceinline__ void unit_coords(int uu, int logunits, int logs, int&
 }
 
 // K <= 3 consecutive forward (Cooley-Tukey) stages of both rows in
-// registers, one barrier per round: the stage of ntt_fwd_rows with m groups
-// of distance t = 2^logt and the K - 1 after it. A unit is the 2^K elements
+// registers, one barrier per round: the radix-2 stage with m groups of
+// distance t = 2^logt (butterfly (j, j + t) of group i twiddled by
+// psi[m + i]) and the K - 1 after it. A unit is the 2^K elements
 // j0 + q d (d = t / 2^(K-1)) that those stages mix; stage l uses twiddle
 // psi[(m + b) 2^l + sg] on sub-block sg of unit b's block. Same values as
-// ntt_fwd_rows (canonical), fewer shared-memory passes and barriers.
+// one radix-2 stage per pass (canonical), fewer shared-memory passes and
+// barriers.
 template <int K>
 __device__ __forceinline__ void fwd_round(uint32_t* buf, int logn, int m, int logt,
                                           const uint32_t* psi, const uint32_t* psi_s,
@@ -97,9 +100,10 @@ __device__ __forceinline__ void fwd_round(uint32_t* buf, int logn, int m, int lo
 }
 
 // K <= 3 consecutive inverse (Gentleman-Sande) stages of both rows: the
-// stage of ntt_inv_rows with index base h and distance t = 2^logt and the
-// K - 1 after it; unit elements j0 + q t, twiddle ipsi[(h >> l) + b 2^(K-l-1)
-// + g] on pair group g of stage l. The last round also scales by N^-1.
+// radix-2 stage with index base h and distance t = 2^logt (twiddle
+// ipsi[h + i] on group i) and the K - 1 after it; unit elements j0 + q t,
+// twiddle ipsi[(h >> l) + b 2^(K-l-1) + g] on pair group g of stage l. The
+// last round also scales by N^-1.
 template <int K>
 __device__ __forceinline__ void inv_round(uint32_t* buf, int logn, int h, int logt,
                                           const uint32_t* ipsi, const uint32_t* ipsi_s,

@@ -7,9 +7,10 @@ forward_i32_plain / forward_u64_plain and inverse_plain
 (ops/folded_ntt.py), which mirror the JAX transforms. The wrappers take
 CUDA tensors only: on anything else they raise. Each counts its launches
 in `<wrapper>.launches`. The module also builds the constant tables every
-kernel reads: the twiddle rows (`kernel_tables`) and, for the rotation
-kernels K3 and K4, the powers of psi (`psi_powers`) and the constants of
-`garner_u32` (`garner_consts_shoup`).
+kernel reads: the twiddle rows (`kernel_tables`), the per-prime Shoup
+constants of the `%`-free reductions and the constants of `garner_u32`
+(`garner_consts_shoup`) and, for the rotation kernels K3 and K4, the
+powers of psi (`psi_powers`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import ctypes
 import numpy as np
 import torch
 
-from tfhe_tpu_torch import _build, _u64
+from tfhe_tpu_torch import _build
 from tfhe_tpu_torch._u64 import MASK32
 
 _P = ctypes.c_void_p
@@ -30,7 +31,7 @@ def _lib():
     lib = _build.load("ntt")
     lib.tfhe_ntt_forward.argtypes = [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P]
     lib.tfhe_ntt_forward.restype = _I
-    lib.tfhe_ntt_inverse.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
+    lib.tfhe_ntt_inverse.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
     lib.tfhe_ntt_inverse.restype = _I
     return lib
 
@@ -50,9 +51,9 @@ def _as_i32(vals, device) -> torch.Tensor:
 
 def garner_consts_shoup(engine) -> torch.Tensor:
     """(64,) int32 u32 constants of garner_u32 (layout in
-    csrc/ntt_device.cuh) and, at [52 + q] and [56 + q], the rotation
-    kernels' (K3, K4) per-prime floor(2^32 / p_q) and the Shoup companion
-    of 2^32 mod p_q; built once per engine."""
+    csrc/ntt_device.cuh) and, at [52 + q] and [56 + q], the per-prime
+    floor(2^32 / p_q) and the Shoup companion of 2^32 mod p_q that every
+    kernel's `%`-free reductions use; built once per engine."""
     gs = getattr(engine, "_garner_consts_shoup", None)
     if gs is None:
         g = engine.garner
@@ -127,6 +128,19 @@ def _dims(engine):
     return logn, logc
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous at a 16-byte aligned address: K1 and K2 move 16 bytes a
+    thread."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _require_kernel_n(engine, what: str):
+    """K1 and K2 are built for N = 256 .. 4096 (csrc/ntt.cu, shape_ok)."""
+    if not 256 <= engine.n <= 4096:
+        raise ValueError(f"{what} takes N in [256, 4096], got N = {engine.n}")
+
+
 def _require_cuda(x: torch.Tensor, what: str):
     if not x.is_cuda:
         raise ValueError(f"{what} launches a CUDA kernel and needs a CUDA tensor, got {x.device}")
@@ -136,21 +150,25 @@ def forward(engine, x: torch.Tensor, small: bool) -> torch.Tensor:
     """K1. small=True: (..., N) ints with |x| < 2^31, taken as int32 (the
     forward_small / nb=3 and nb=4 contracts); small=False: (..., N) int64
     u64 torus values (forward_u64). Returns (..., P, N) int32 residues."""
+    _require_kernel_n(engine, "ntt_cuda.forward")
     _require_cuda(x, "ntt_cuda.forward")
     n, n_pr = engine.n, engine.n_primes
     if x.shape[-1] != n:
         raise ValueError(f"last dim {x.shape[-1]} != N = {n}")
     batch = x.shape[:-1]
-    xf = (_u64.trunc_i32(x).to(torch.int32) if small else x.to(torch.int64)).reshape(-1, n).contiguous()
+    # |x| < 2^31 by contract, so the cast to int32 is exact (one op, none
+    # for an int32 tensor)
+    xf = _aligned(x.to(torch.int32 if small else torch.int64).reshape(-1, n))
     rows = xf.shape[0]
     out = torch.empty((rows, n_pr, n), dtype=torch.int32, device=x.device)
     if rows:
-        tw, pp = kernel_tables(engine)
+        tw, _ = kernel_tables(engine)
+        gs = garner_consts_shoup(engine)
         logn, logc = _dims(engine)
         _build.check(
             _lib().tfhe_ntt_forward(
                 xf.data_ptr(), 0 if small else 1, out.data_ptr(), rows, logn, logc, n_pr,
-                tw.data_ptr(), pp.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+                tw.data_ptr(), gs.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
             ),
             "tfhe_ntt_forward",
         )
@@ -164,21 +182,23 @@ forward.launches = 0
 def inverse(engine, f: torch.Tensor) -> torch.Tensor:
     """K2: (..., P, N) residues < 2^31 (lazy), folded layout ->
     (..., P, N) int32 canonical residues, natural coefficient order."""
+    _require_kernel_n(engine, "ntt_cuda.inverse")
     _require_cuda(f, "ntt_cuda.inverse")
     n, n_pr = engine.n, engine.n_primes
     if tuple(f.shape[-2:]) != (n_pr, n):
         raise ValueError(f"trailing dims {tuple(f.shape[-2:])} != (P, N) = {(n_pr, n)}")
     batch = f.shape[:-2]
-    ff = f.to(torch.int32).reshape(-1, n_pr, n).contiguous()
+    ff = _aligned(f.to(torch.int32).reshape(-1, n_pr, n))
     rows = ff.shape[0]
     out = torch.empty_like(ff)
     if rows:
         tw, pp = kernel_tables(engine)
+        gs = garner_consts_shoup(engine)
         logn, logc = _dims(engine)
         _build.check(
             _lib().tfhe_ntt_inverse(
                 ff.data_ptr(), out.data_ptr(), rows, logn, logc, n_pr, tw.data_ptr(),
-                pp.data_ptr(), torch.cuda.current_stream(f.device).cuda_stream,
+                pp.data_ptr(), gs.data_ptr(), torch.cuda.current_stream(f.device).cuda_stream,
             ),
             "tfhe_ntt_inverse",
         )

@@ -116,6 +116,22 @@ PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = ShortintParams(
     carry_modulus=4,
 )
 
+# A 1-bit message / 1-bit carry set for cheaper gates over bit-sliced data.
+# k=2 and N=1024: its PBS takes the loop of external products (K1/K2 on
+# every step), not the fused level-1 k=1 CMux.
+PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 = ShortintParams(
+    name="PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128",
+    lwe_dimension=780,
+    glwe_dimension=2,
+    polynomial_size=1024,
+    lwe_noise=NoiseDistribution.tuniform(47),
+    glwe_noise=NoiseDistribution.tuniform(17),
+    pbs=GadgetParams(base_log=17, level=1),
+    ks=GadgetParams(base_log=4, level=3),
+    message_modulus=2,
+    carry_modulus=2,
+)
+
 # Multi-bit PBS sets (tfhe-rs PARAM_MULTI_BIT_GROUP_{2,3}_MESSAGE_2_CARRY_2_
 # KS_PBS_TUNIFORM_2M128 analogs): the classic set's GLWE, N, noise and
 # message layout; GROUP_3 raises n 880 -> 882 so the group size divides it.
@@ -167,6 +183,7 @@ _REGISTRY = {
     p.name: p
     for p in [
         PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128,
         PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
