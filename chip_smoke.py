@@ -24,16 +24,33 @@ through the entry points a user calls, at full width:
    keygen, encrypt 512 values in [0, 2), apply_lut (identity and
    v -> 1 - v), decrypt and check, then ms per apply_lut, per rotation
    step, K1/K2's share of a step and, where torch.profiler sees the card,
-   the kernel time by name over one apply_lut (`pbs_loop:` lines).
+   the kernel time by name over one apply_lut (`pbs_loop:` lines);
+5. boolean gates at BOOLEAN_PARAMS_128 (k=2, N=1024, PBS level 3, the loop
+   path with 9 digit rows per ciphertext), batch 512 over every input
+   combination: keygen, the six binary gates, not_ and mux decrypted
+   against their truth tables, 680 K1 and 680 K2 launches per bootstrap
+   (none for not_, three bootstraps for mux), K3/K4 never; AND gates/s,
+   K1 at the step's (4608, 1024) against forward_i32_plain, and a
+   torch.profiler window over one AND (`boolean:` lines);
+6. the encrypted x clear matmul at PARAMS_8B_2048, enc(32 x 2048) x
+   clear(2048 x 1024), 8-bit inputs and weights in [-7, 7]: keygen,
+   encrypt and prepare seconds, ms per matmul on prepared weights and
+   Gmac/s, the decrypted error against the clear product (err_max <= 256),
+   2 K1 and 2 K2 launches per matmul, K1 at the packing keyswitch's
+   (131072, 2048) and K2 at the masks' (32768, 3, 2048) against their
+   plain versions (run in chunks of rows), and a profiler window over one
+   matmul (`matmul:` lines);
+7. GlweLinearLayerExecutor 2048 -> 1024 at batch 32 with keys on the card:
+   EXECUTE within 256 accumulator LSBs of DISABLE (`linear:` line).
 
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. It
 prints the card, build time, per-kernel times beside their bounds,
-keygen seconds, PBS/s, transfers/s, K3's and K4's times at 64, 128 and
-512 ciphertexts (`ms_by_batch`), K1's and K2's at the keygen and loop
-shapes (`ms_by_shape`), ptxas's registers and spills, a
-`{"kernels": [...]}` line, and last
-a `{"ok": true, "device": {...}}` line. Any failure raises and exits
+keygen seconds, PBS/s, transfers/s, gates/s, ms per matmul and Gmac/s,
+K3's and K4's times at 64, 128 and 512 ciphertexts (`ms_by_batch`), K1's
+and K2's at the keygen, loop, boolean and matmul shapes (`ms_by_shape`),
+ptxas's registers and spills, a `{"kernels": [...]}` line, and last a
+`{"ok": true, "device": {...}}` line. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing a result.
 """
 
@@ -49,6 +66,7 @@ SEED = 1234
 BATCH = 512
 ERC20_BATCH = 32
 ERC20_BITS = 64
+MM_R, MM_C, MM_O = 32, 2048, 1024  # enc(R x C) x clear(C x O), scripts/bench_matmul.py's shape
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
 # integer instructions.
@@ -130,6 +148,65 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def profile_window(label: str, what: str, fn, steps: int | None, untraced_ms: float) -> dict:
+    """One call of `fn` under torch.profiler: kernel launches (per rotation
+    step where `steps` is given), the card's busy share of the window and
+    of the untraced time, device time by kernel and by torch op, and K1's
+    and K2's share, printed as `<label> profile:` lines."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_op = {}, {}
+    for ev in prof.key_averages():
+        us = self_device_us(ev)
+        # kernels (device-side events) by name; the torch ops that launched
+        # them report the same time, kept apart as the breakdown by op
+        if us > 0:
+            on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+            (by_name if on_device else by_op)[ev.key] = (us / 1e3, ev.count)
+    if not by_name:
+        print(f"{label} profile: torch.profiler recorded no device-side kernel events; the times above are "
+              "CUDA events", flush=True)
+        return {}
+    dev_ms = sum(t for t, _ in by_name.values())
+    launches = sum(cnt for _, cnt in by_name.values())
+    per_step = f" ({launches / steps:.1f} per step)" if steps else ""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"{label} profile: {what}, {launches} kernel launches{per_step}, "
+          f"device busy {dev_ms:.3f} ms: {100 * dev_ms / window_ms:.1f} % of the {window_ms:.3f} ms window "
+          f"(profiler on), {100 * dev_ms / untraced_ms:.1f} % of the untraced {untraced_ms:.3f} ms; by kernel: "
+          + "; ".join(f"{short(name)} {t:.3f} ms x{cnt}" for name, (t, cnt) in top), flush=True)
+    ops = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"{label} profile: device time by torch op: "
+          + "; ".join(f"{name} {t:.3f} ms x{cnt}" for name, (t, cnt) in ops), flush=True)
+    for key, sym in (("K1", "k1_forward"), ("K2", "k2_inverse")):
+        t, cnt = [sum(v[i] for nm, v in by_name.items() if sym in nm) for i in (0, 1)]
+        print(f"{label} profile: {key} on the path {t:.3f} ms over {cnt} launches "
+              f"({100 * t / dev_ms:.1f} % of device time)", flush=True)
+    return dict(launches=launches, dev_ms=dev_ms, window_ms=window_ms)
+
+
+def chunked_vs_plain(plain, x, out, chunk: int, err_fn) -> tuple[int, float]:
+    """A kernel's output `out` on `x` against `plain` run on chunks of rows:
+    the largest error by `err_fn` and the plain version's total ms."""
+    import torch
+
+    err, ms = 0, 0.0
+    for lo in range(0, x.shape[0], chunk):
+        got = []
+        ms += host_ms(lambda: got.append(plain(x[lo:lo + chunk])))
+        err = max(err, err_fn(out[lo:lo + chunk], got[0]))
+        del got
+    torch.cuda.synchronize()
+    return err, ms
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     to = n_ops / ALU_OPS_PER_S * 1e3
@@ -188,6 +265,9 @@ def main() -> int:
     from tfhe_tpu_torch.core import bootstrap as bt
     from tfhe_tpu_torch.core import multibit as mb
     from tfhe_tpu_torch.core.lwe import keyswitch
+    from tfhe_tpu_torch.ml.linear import GlweLinearLayerExecutor
+    from tfhe_tpu_torch.models import boolean as bo
+    from tfhe_tpu_torch.models import glwe_matmul as gm
     from tfhe_tpu_torch.models import integer as ri
     from tfhe_tpu_torch.models import shortint as si
     from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
@@ -201,6 +281,8 @@ def main() -> int:
     MB3 = tp.PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
     MB4 = tp.PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
     LOOP = tp.PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128
+    BOOL = tp.BOOLEAN_PARAMS_128
+    MM = tp.PARAMS_8B_2048
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -314,6 +396,58 @@ def main() -> int:
                    plain_ms=cuda_ms(lambda: eng11.inverse_plain(mac), 2), shape=f"({rows11}, {n_pr}, {n11})")
     k2_loop["bound_ms"], k2_loop["bound_by"] = k2_bound(rows11, n_pr, n11)
     del digits, fd, mac
+    # K1 and K2 at the shapes the boolean and matmul paths give them (paths 5
+    # and 6), timed here, before the first profiler window over a whole path:
+    # short profiles taken after one have lost kernel events on the H100
+    # the gate step: 9 digit rows per ciphertext, |digit| <= 2^(base_log - 1)
+    eng10 = get_folded_engine(BOOL.polynomial_size, dev)
+    rows_b = BATCH * (BOOL.glwe_dimension + 1) * BOOL.pbs.level
+    half_b = 1 << (BOOL.pbs.base_log - 1)
+    digits = rand_i32((rows_b, BOOL.polynomial_size), -half_b, half_b + 1)
+    k1_bool_err = mod_err(eng10.forward_small(digits), eng10.forward_i32_plain(digits))
+    mac = (rand_i32((BATCH, BOOL.glwe_dimension + 1, n_pr, BOOL.polynomial_size), 0, 2**31) % (2 * primes)).to(torch.int32)
+    k2_bool_err = exact_err(ntt_cuda.inverse(eng10, mac), eng10.inverse_plain(mac))
+    check(k1_bool_err == 0 and k2_bool_err == 0,
+          f"K1/K2 vs plain at the boolean step's shapes (err {k1_bool_err}, {k2_bool_err})")
+    k1_bool = dict(**kernel_ms(lambda: eng10.forward_small(digits), 20, "k1_forward"),
+                   plain_ms=cuda_ms(lambda: eng10.forward_i32_plain(digits), 2),
+                   shape=f"({rows_b}, {BOOL.polynomial_size}) int32 -> ({rows_b}, {n_pr}, {BOOL.polynomial_size})")
+    k1_bool["bound_ms"], k1_bool["bound_by"] = k1_bound(rows_b, n_pr, BOOL.polynomial_size, 4)
+    rows_m = BATCH * (BOOL.glwe_dimension + 1)
+    k2_bool = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng10, mac), 20, "k2_inverse"),
+                   plain_ms=cuda_ms(lambda: eng10.inverse_plain(mac), 2),
+                   shape=f"({rows_m}, {n_pr}, {BOOL.polynomial_size})")
+    k2_bool["bound_ms"], k2_bool["bound_by"] = k2_bound(rows_m, n_pr, BOOL.polynomial_size)
+    print(f"check K1 at the boolean step ({rows_b}, {BOOL.polynomial_size}) vs forward_i32_plain err {k1_bool_err}, "
+          f"{k1_bool['ms']:.4f} ms (bound {k1_bool['bound_ms']:.4f}, plain {k1_bool['plain_ms']:.4f}); "
+          f"K2 ({rows_m}, {n_pr}, {BOOL.polynomial_size}) err {k2_bool_err}, {k2_bool['ms']:.4f} ms; "
+          f"{k1_bool['timed_by']}", flush=True)
+    del digits, mac
+    # K1 at the packing keyswitch's launch (R * n_in * level digit rows) and
+    # K2 at the mask inverse (R * O * k rows); the plain versions run in
+    # chunks of rows (their float64 digit planes would not fit at once)
+    rows_pks = MM_R * MM.glwe_dimension * MM.polynomial_size * MM.packing_ks.level
+    half_p = 1 << (MM.packing_ks.base_log - 1)
+    digits = rand_i32((rows_pks, n), -half_p, half_p + 1)
+    f_k = eng.forward_small(digits)
+    k1_pks_err, k1_pks_plain = chunked_vs_plain(eng.forward_small_plain, digits, f_k, 8192, mod_err)
+    del f_k
+    rows_mask = MM_R * MM_O * MM.glwe_dimension
+    mac = (rand_i32((rows_mask, n_pr, n), 0, 2**31) % (2 * primes)).to(torch.int32)
+    k2_mask_err, k2_mask_plain = chunked_vs_plain(eng.inverse_plain, mac, ntt_cuda.inverse(eng, mac), 8192, exact_err)
+    check(k1_pks_err == 0 and k2_mask_err == 0,
+          f"K1 at ({rows_pks}, {n}) and K2 at ({rows_mask}, {n_pr}, {n}) vs plain (err {k1_pks_err}, {k2_mask_err})")
+    k1_pks = dict(**kernel_ms(lambda: eng.forward_small(digits), 5, "k1_forward"), plain_ms=k1_pks_plain,
+                  shape=f"({rows_pks}, {n}) int32 -> ({rows_pks}, {n_pr}, {n})")
+    k1_pks["bound_ms"], k1_pks["bound_by"] = k1_bound(rows_pks, n_pr, n, 4)
+    k2_mask = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng, mac), 5, "k2_inverse"), plain_ms=k2_mask_plain,
+                   shape=f"({rows_mask}, {n_pr}, {n})")
+    k2_mask["bound_ms"], k2_mask["bound_by"] = k2_bound(rows_mask, n_pr, n)
+    print(f"check K1 at the packing keyswitch ({rows_pks}, {n}) err {k1_pks_err}, {k1_pks['ms']:.4f} ms "
+          f"(bound {k1_pks['bound_ms']:.4f}, plain {k1_pks_plain:.3f}); K2 at the masks ({rows_mask}, {n_pr}, {n}) "
+          f"err {k2_mask_err}, {k2_mask['ms']:.4f} ms (bound {k2_mask['bound_ms']:.4f}, plain {k2_mask_plain:.3f}); "
+          f"{k1_pks['timed_by']}", flush=True)
+    del digits, mac
     edge = {}
     i32_ext = torch.tensor([2**31 - 1, -(2**31) + 1, -(2**31), -1, 0, 1], device=dev, dtype=torch.int32)
     u64_ext = torch.tensor([0, -1, 1, 2**32 - 1, 2**32, -(2**63)], device=dev, dtype=torch.int64)  # -1 is 2^64 - 1
@@ -605,56 +739,144 @@ def main() -> int:
           f"at the step's shapes, {k1_loop['timed_by']}: {100 * share:.1f} % of a step", flush=True)
 
     # kernel time by name over one apply_lut, where the profiler sees the card
-    from torch.profiler import ProfilerActivity, profile
-
+    profile_window("pbs_loop", "one apply_lut", lambda: si.apply_lut(sk, c, lut_flip, 1), steps11, loop_ms)
+    del ck, sk, c, ident, flip, small
+    # -- path 5: boolean gates at BOOLEAN_PARAMS_128 (k=2, N=1024, level 3) ---
+    # Every gate bootstrap takes the loop of external products: K1 on the
+    # (k+1) * level = 9 digit rows of each ciphertext and K2 once per step.
+    reset_counts()
+    t0 = time.perf_counter()
+    bck, bsk = bo.keygen(BOOL, seed=SEED + 9, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        si.apply_lut(sk, c, lut_flip, 1)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    by_name, by_op = {}, {}
-    for ev in prof.key_averages():
-        us = self_device_us(ev)
-        # kernels (device-side events) by name; the torch ops that launched
-        # them report the same time, kept apart as the step's breakdown by op
-        if us > 0:
-            on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-            (by_name if on_device else by_op)[ev.key] = (us / 1e3, ev.count)
-    if by_name:
-        dev_ms = sum(t for t, _ in by_name.values())
-        launches = sum(cnt for _, cnt in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        print(f"pbs_loop profile: one apply_lut, {launches} kernel launches ({launches / steps11:.1f} per step), "
-              f"device busy {dev_ms:.3f} ms: {100 * dev_ms / window_ms:.1f} % of the {window_ms:.3f} ms window "
-              f"(profiler on), {100 * dev_ms / loop_ms:.1f} % of the untraced {loop_ms:.3f} ms; by kernel: "
-              + "; ".join(f"{short(name)} {t:.3f} ms x{cnt}" for name, (t, cnt) in top), flush=True)
-        ops = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
-        print("pbs_loop profile: device time by torch op: "
-              + "; ".join(f"{name} {t:.3f} ms x{cnt}" for name, (t, cnt) in ops), flush=True)
-        for key, sym in (("K1", "k1_forward"), ("K2", "k2_inverse")):
-            t, cnt = [sum(v[i] for nm, v in by_name.items() if sym in nm) for i in (0, 1)]
-            print(f"pbs_loop profile: {key} on the path {t:.3f} ms over {cnt} launches "
-                  f"({100 * t / dev_ms:.1f} % of device time)", flush=True)
-    else:
-        print("pbs_loop profile: torch.profiler recorded no device-side kernel events; the times above are "
-              "CUDA events", flush=True)
+    bool_keygen_s = time.perf_counter() - t0
+    check(not bt.uses_fused_cmux(bsk.bsk, BOOL.glwe_dimension + 1), "the boolean key takes the loop of external products")
+    idx = torch.arange(BATCH, device=dev)
+    bits = {"a": idx % 2, "b": (idx // 2) % 2, "c": (idx // 4) % 2}  # every input combination, 128 (64) times
+    brng = FheRng(SEED + 10, "cuda")
+    ea, eb, ec = (bo.encrypt(bck, bits[k], brng) for k in ("a", "b", "c"))
+    truth = {
+        "and_": bits["a"] & bits["b"], "or_": bits["a"] | bits["b"], "nand": 1 - (bits["a"] & bits["b"]),
+        "nor": 1 - (bits["a"] | bits["b"]), "xor_": bits["a"] ^ bits["b"], "xnor": 1 - (bits["a"] ^ bits["b"]),
+        "not_": 1 - bits["a"], "mux": torch.where(bits["c"] == 1, bits["a"], bits["b"]),
+    }
+    bootstraps = {"not_": 0, "mux": 3}
+    steps_b = BOOL.lwe_dimension
+    per_gate = {}
+    for gate in truth:
+        before = read_counts()
+        if gate == "not_":
+            out = bo.not_(bsk, ea)
+        elif gate == "mux":
+            out = bo.mux(bsk, ec, ea, eb)
+        else:
+            out = getattr(bo, gate)(bsk, ea, eb)
+        after = read_counts()
+        per_gate[gate] = {k: after[k] - before[k] for k in wrappers}
+        check(bool((bo.decrypt(bck, out).to(torch.int64) == truth[gate]).all()), f"boolean: {gate} decrypts to its truth table")
+        nb = bootstraps.get(gate, 1)
+        check(per_gate[gate] == {"K1": steps_b * nb, "K2": steps_b * nb, "K3": 0, "K4": 0},
+              f"boolean: {gate} launches K1 and K2 {steps_b} times per bootstrap ({nb}), K3/K4 never ({per_gate[gate]})")
+    paths["boolean"] = read_counts()
+    print(f"boolean path ({BOOL.name}, n={steps_b}, k={BOOL.glwe_dimension}, N={BOOL.polynomial_size}, "
+          f"PBS level {BOOL.pbs.level} / base_log {BOOL.pbs.base_log}): keygen_s {bool_keygen_s:.3f}; "
+          f"{BATCH} ct, six gates, not_ and mux decrypt to their truth tables; launches {paths['boolean']} "
+          f"(per gate {per_gate})", flush=True)
+
+    and_ms = cuda_ms(lambda: bo.and_(bsk, ea, eb), 2)
+    print(f"boolean: batch {BATCH}, AND {and_ms:.3f} ms per gate batch, {BATCH / and_ms * 1e3:.1f} gates/s, "
+          f"{and_ms / steps_b:.4f} ms per rotation step", flush=True)
+    print(f"boolean: {k1_bool['timed_by']}: K1 + K2 at the step's shapes "
+          f"{100 * (k1_bool['ms'] + k2_bool['ms']) / (and_ms / steps_b):.1f} % of a step", flush=True)
+    profile_window("boolean", "one AND gate batch", lambda: bo.and_(bsk, ea, eb), steps_b, and_ms)
+    del bck, bsk, ea, eb, ec, out
+
+    # -- path 6: encrypted x clear matmul at PARAMS_8B_2048 ------------------
+    # enc(32 x 2048) x clear(2048 x 1024), 8-bit inputs, weights in [-7, 7]
+    reset_counts()
+    t0 = time.perf_counter()
+    mkey = gm.create_private_key(MM, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    mm_keygen_s = time.perf_counter() - t0
+    host = np.random.default_rng(11)
+    x_in = host.integers(0, 1 << 8, (MM_R, MM_C), dtype=np.uint64)
+    w_in = host.integers(-7, 8, (MM_C, MM_O), dtype=np.int64)
+    t0 = time.perf_counter()
+    enc = gm.encrypt_matrix(mkey, x_in, FheRng(7, "cuda"))
+    torch.cuda.synchronize()
+    mm_encrypt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = gm.prepare_clear_weights(MM, w_in, device="cuda")
+    torch.cuda.synchronize()
+    mm_prepare_s = time.perf_counter() - t0
+    res = gm.matrix_multiplication(enc, prep, mkey)
+    before = read_counts()
+    res = gm.matrix_multiplication(enc, prep, mkey)
+    after = read_counts()
+    per_mm = {k: after[k] - before[k] for k in wrappers}
+    raw = gm.matrix_multiplication(enc, w_in, mkey)
+    paths["matmul"] = read_counts()
+    got = gm.decrypt_matrix(res, mkey).cpu().numpy()
+    err = (got - x_in.astype(np.int64) @ w_in).astype(np.float64)
+    err_std, err_max = float(err.std()), int(np.abs(err).max())
+    check(err_max <= 256, f"matmul: max |decrypted - clear product| {err_max} within the budget of 256")
+    check(torch.equal(raw.data, res.data), "matmul: the raw-weight path equals the prepared path")
+    check(per_mm == {"K1": 2, "K2": 2, "K3": 0, "K4": 0},
+          f"matmul: K1 2 and K2 2 launches per matmul on prepared weights, K3/K4 none ({per_mm})")
+    mm_ms = cuda_ms(lambda: gm.matrix_multiplication(enc, prep, mkey), 3)
+    gmacs = MM_R * MM_C * MM_O / (mm_ms * 1e-3) / 1e9
+    print(f"matmul ({MM.name}, N={MM.polynomial_size}, enc({MM_R}x{MM_C}) x clear({MM_C}x{MM_O})): "
+          f"keygen_s {mm_keygen_s:.3f}, encrypt_s {mm_encrypt_s:.3f}, prepare_s {mm_prepare_s:.3f}; "
+          f"{mm_ms:.3f} ms per matmul on prepared weights, {gmacs:.3f} Gmac/s; err_std {err_std:.4f}, "
+          f"err_max {err_max} (budget 256); launches {paths['matmul']} (per matmul {per_mm})", flush=True)
+    print(f"matmul: {k1_pks['timed_by']}: K1 at the packing keyswitch + K2 at the masks "
+          f"{100 * (k1_pks['ms'] + k2_mask['ms']) / mm_ms:.1f} % of a matmul", flush=True)
+    profile_window("matmul", "one matmul on prepared weights", lambda: gm.matrix_multiplication(enc, prep, mkey),
+                   None, mm_ms)
+    del mkey, enc, prep, res, raw
+
+    # -- path 7: the encrypted linear layer, 2048 -> 1024, batch 32 -----------
+    reset_counts()
+    host = np.random.default_rng(12)
+    layer = GlweLinearLayerExecutor(host.normal(size=(MM_C, MM_O)), bias=host.normal(size=MM_O))
+    t0 = time.perf_counter()
+    layer.keygen(seed=5, device="cuda")
+    torch.cuda.synchronize()
+    lin_keygen_s = time.perf_counter() - t0
+    x_f = host.uniform(-1.0, 3.0, size=(MM_R, MM_C))
+    t0 = time.perf_counter()
+    y_exec = layer.forward(x_f, fhe="execute")
+    lin_ms = (time.perf_counter() - t0) * 1e3
+    paths["linear"] = read_counts()
+    y_clear = layer.forward(x_f, fhe="disable")
+    lsb = float(layer.last_input_quantizer.scale) * float(layer.w_quant.scale)
+    lin_lsb = float(np.abs(y_exec - y_clear).max() / lsb)
+    check(np.isfinite(y_exec).all() and y_exec.shape == (MM_R, MM_O), "linear: finite (32, 1024) output")
+    check(lin_lsb <= 256, f"linear: EXECUTE within 256 accumulator LSBs of DISABLE ({lin_lsb:.3f})")
+    check(paths["linear"]["K1"] > 0 and paths["linear"]["K2"] > 0, f"linear: K1 and K2 launched {paths['linear']}")
+    print(f"linear: GlweLinearLayerExecutor {MM_C} -> {MM_O}, batch {MM_R}, {layer.params.name}: keygen_s "
+          f"{lin_keygen_s:.3f}; forward EXECUTE {lin_ms:.3f} ms (quantize, encrypt, prepare, matmul, decrypt); "
+          f"max |EXECUTE - DISABLE| {lin_lsb:.3f} accumulator LSBs (budget 256); launches {paths['linear']}",
+          flush=True)
+    del layer
+
     kern["K1"] = dict(
         name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
+                                                                   k1_bool_err, k1_pks_err,
                                                                    *(v[0] for v in edge.values()),
                                                                    *(v[1] for v in edge.values())),
-        path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop}, **{
+        path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop, "boolean": k1_bool,
+                                      "matmul_pks": k1_pks}, **{
             f: k1_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
     )
     kern["K2"] = dict(
         name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:518",
-        max_abs_err=max(k2_512, k2_err, k2_loop_err, *(v[2] for v in edge.values())),
-        path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop}, **{
+        max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, *(v[2] for v in edge.values())),
+        path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop, "boolean": k2_bool,
+                                      "matmul_mask": k2_mask}, **{
             f: k2_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
     )
-    del ck, sk, c, ident, flip, small
 
     # -- summary ----------------------------------------------------------------
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "equal", "ms",

@@ -32,6 +32,9 @@ from tfhe_tpu.rng import FheRng as JaxRng
 from tfhe_tpu_torch import _u64, convert
 from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch.core import bootstrap as tbt
+from tfhe_tpu_torch.ml.linear import GlweLinearLayerExecutor
+from tfhe_tpu_torch.models import boolean as tbo
+from tfhe_tpu_torch.models import glwe_matmul as tgm
 from tfhe_tpu_torch.models import integer as ti
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
@@ -183,7 +186,10 @@ def test_package_imports_no_jax():
         "import sys, tfhe_tpu_torch.models.shortint, tfhe_tpu_torch.convert, "
         "tfhe_tpu_torch.ops.ntt_cuda, tfhe_tpu_torch.ops.blind_rotate_cuda, "
         "tfhe_tpu_torch.core.multibit, tfhe_tpu_torch.ops.multibit_cuda, "
-        "tfhe_tpu_torch.models.integer, tfhe_tpu_torch.parallel.dispatch; "
+        "tfhe_tpu_torch.models.integer, tfhe_tpu_torch.parallel.dispatch, "
+        "tfhe_tpu_torch.models.boolean, tfhe_tpu_torch.core.packing, tfhe_tpu_torch.core.seeded, "
+        "tfhe_tpu_torch.models.glwe_matmul, tfhe_tpu_torch.noise, tfhe_tpu_torch.ml.common, "
+        "tfhe_tpu_torch.ml.quantization, tfhe_tpu_torch.ml.linear; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -210,3 +216,11 @@ def test_entry_points_need_a_device_when_no_cuda():
         ti.trivial_radix(tp.TOY_SHORTINT, [1], 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         ti.trivial_radix_bigint(tp.TOY_SHORTINT, [1], 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbo.keygen(tp.TOY_BOOLEAN, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgm.create_private_key(tp.TOY_MATMUL, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgm.prepare_clear_weights(tp.TOY_MATMUL, np.ones((4, 2), dtype=np.int64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GlweLinearLayerExecutor(np.ones((4, 2)), params=tp.TOY_MATMUL).keygen(seed=0)

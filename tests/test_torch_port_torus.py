@@ -13,10 +13,13 @@ import torch
 
 from tfhe_tpu import params as jp
 from tfhe_tpu import torus as jt
+from tfhe_tpu.core import lwe as jl
 from tfhe_tpu_torch import _u64
 from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch import torus as tt
 from tfhe_tpu_torch.convert import params_from_reference, u64_tensor
+from tfhe_tpu_torch.core import lwe as tl
+from tfhe_tpu_torch.rng import FheRng
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -103,8 +106,9 @@ def test_unsigned_compare_and_shift():
     np.testing.assert_array_equal(_u64.mulhi_u32(torch.from_numpy(lo), torch.from_numpy(hi)).numpy(), want)
 
 
-# Reference sets whose modules (boolean, GLWE matmul) are not ported yet.
-PENDING_PARAMS = {"BOOLEAN_PARAMS_128", "TOY_BOOLEAN", "PARAMS_8B_2048", "TOY_MATMUL"}
+# Reference sets whose modules are not ported yet: none since the boolean
+# and GLWE matmul sets joined the port.
+PENDING_PARAMS = set()
 
 
 def test_params_missing_are_exactly_the_pending_sets():
@@ -123,5 +127,50 @@ def test_params_match_reference(name):
     assert ours == params_from_reference(ref)
     assert ours.to_json() == ref.to_json()
     assert ours.hash == ref.hash
-    assert ours.delta == ref.delta
+    if hasattr(ref, "delta"):
+        assert ours.delta == ref.delta
+    if hasattr(ref, "big_lwe_dimension"):
+        assert ours.big_lwe_dimension == ref.big_lwe_dimension
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+
+
+def test_trees_matmul_matches_reference():
+    """TREES_MATMUL stays outside both registries."""
+    assert tp.TREES_MATMUL == params_from_reference(jp.TREES_MATMUL)
+    assert tp.TREES_MATMUL.hash == jp.TREES_MATMUL.hash
+    assert "TREES_MATMUL" not in tp.registry()
+
+
+def test_lwe_helpers_match_reference():
+    a, b = _rand_u64(9, (3, 17)), _rand_u64(10, (3, 17))
+    ta, tb_ = u64_tensor(a), u64_tensor(b)
+    ja, jb_ = jnp.asarray(a), jnp.asarray(b)
+    _same(tl.lwe_add(ta, tb_), jl.lwe_add(ja, jb_))
+    _same(tl.lwe_sub(ta, tb_), jl.lwe_sub(ja, jb_))
+    for c in (3, 2**63 + 5, 2**64 - 1):
+        _same(tl.lwe_scalar_mul(ta, c), jl.lwe_scalar_mul(ja, c))
+    pt = _rand_u64(11, (3,))
+    _same(tl.lwe_add_plain(ta, u64_tensor(pt)), jl.lwe_add_plain(ja, jnp.asarray(pt)))
+    _same(ta, a)  # lwe_add_plain returns a new tensor
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_sample_extract_all_matches_reference(k):
+    g = _rand_u64(12 + k, (2, k + 1, 32))
+    got = tl.sample_extract_all(u64_tensor(g))
+    _same(got, jl.sample_extract_all(jnp.asarray(g)))
+    for t in (0, 5, 31):
+        _same(got[..., t, :], jl.sample_extract(jnp.asarray(g), t))
+
+
+def test_rng_split_and_fork_are_deterministic():
+    a, b = FheRng(9, "cpu"), FheRng(9, "cpu")
+    ca, cb = a.split(3), b.split(3)
+    draws = [c.uniform_torus((5,)) for c in ca]
+    assert all(torch.equal(x, c.uniform_torus((5,))) for x, c in zip(draws, cb))
+    assert not torch.equal(draws[0], draws[1])
+    fa, fb = a.fork(), b.fork()  # the parents advanced past the split's seeds
+    fork_draw = fa.uniform_torus((5,))
+    assert torch.equal(fork_draw, fb.uniform_torus((5,)))
+    assert not any(torch.equal(fork_draw, d) for d in draws)
+    assert torch.equal(a.uniform_torus((4,)), b.uniform_torus((4,)))

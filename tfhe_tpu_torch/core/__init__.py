@@ -1,1 +1,2 @@
-"""Ciphertext and key layer: keys, LWE, GLWE, GGSW, bootstrap."""
+"""Ciphertext and key layer: keys, LWE, GLWE, GGSW, bootstrap, packing
+keyswitch, seeded and compressed GLWE."""

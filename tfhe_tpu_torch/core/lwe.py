@@ -36,6 +36,26 @@ def trivial_lwe(pt: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([mask, pt[..., None]], dim=-1)
 
 
+def lwe_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def lwe_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a - b
+
+
+def lwe_scalar_mul(a: torch.Tensor, c) -> torch.Tensor:
+    """a * c mod 2^64 for an integer constant c (any int, read mod 2^64)."""
+    return a * _u64.const(int(c))
+
+
+def lwe_add_plain(a: torch.Tensor, pt) -> torch.Tensor:
+    """Add torus plaintext(s) pt to the body: a new tensor."""
+    out = a.clone()
+    out[..., -1] += torch.as_tensor(pt, device=a.device).to(torch.int64)
+    return out
+
+
 def sample_extract(glwe_ct: torch.Tensor, index: int = 0) -> torch.Tensor:
     """Coefficient `index` of a GLWE ciphertext as an LWE ciphertext under
     the flattened key: (..., k+1, N) -> (..., k*N + 1). For key poly j,
@@ -49,6 +69,22 @@ def sample_extract(glwe_ct: torch.Tensor, index: int = 0) -> torch.Tensor:
     extracted = mask[..., src]
     extracted = torch.where(i > index, -extracted, extracted)
     flat = extracted.reshape(*glwe_ct.shape[:-2], k * n)
+    return torch.cat([flat, body[..., None]], dim=-1)
+
+
+def sample_extract_all(glwe_ct: torch.Tensor) -> torch.Tensor:
+    """All N coefficients at once, by one gather over index tensors:
+    (..., k+1, N) -> (..., N, k*N+1); row t is sample_extract(glwe_ct, t)."""
+    n = glwe_ct.shape[-1]
+    k = glwe_ct.shape[-2] - 1
+    mask = glwe_ct[..., :-1, :]
+    body = glwe_ct[..., -1, :]  # (..., N)
+    i = torch.arange(n, device=glwe_ct.device)
+    t = i[:, None]  # extraction index
+    src = (t - i[None, :]) % n  # (N_t, N_i)
+    ext = mask[..., src.reshape(-1)].reshape(*mask.shape[:-1], n, n)  # (..., k, N_t, N_i)
+    ext = torch.where(i[None, :] > t, -ext, ext)
+    flat = ext.movedim(-3, -2).reshape(*glwe_ct.shape[:-2], n, k * n)
     return torch.cat([flat, body[..., None]], dim=-1)
 
 

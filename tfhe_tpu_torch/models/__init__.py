@@ -1,1 +1,2 @@
-"""Schemes built on the PBS: shortint, radix integers."""
+"""Schemes built on the PBS and the GLWE engine: shortint, radix integers,
+boolean gates, the encrypted x clear matmul."""

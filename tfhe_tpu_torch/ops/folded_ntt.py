@@ -512,6 +512,40 @@ class FoldedCrtEngine:
         x = self.crt_reconstruct([res[..., i, :] for i in range(self.n_primes)])
         return x << shift if shift else x
 
+    def _inv_coeff_row(self, index: int) -> torch.Tensor:
+        """Shoup pairs (P, 2, N) of row `index` of each prime's inverse
+        transform matrix in the folded frequency layout: entry t is
+        coefficient `index` of the inverse of the one-hot e_t. Built once
+        per (engine, index) by inverting the identity batch through the
+        engine's inverse (K2 on the card, inverse_plain on the CPU; both
+        canonical, so the row is the same)."""
+        cache = self.__dict__.setdefault("_inv_coeff_rows", {})
+        row = cache.get(index)
+        if row is None:
+            eye = torch.eye(self.n, dtype=torch.int32, device=self.device)
+            eye = eye[:, None, :].expand(self.n, self.n_primes, self.n)
+            if self.device.type == "cuda":
+                from tfhe_tpu_torch.ops import ntt_cuda
+
+                res = ntt_cuda.inverse(self, eye)
+            else:
+                res = self.inverse_plain(eye)  # (t, P, coeff)
+            row = self.make_shoup(res[:, :, index].t())
+            cache[index] = row
+        return row
+
+    def backward_coeff(self, f: torch.Tensor, index: int, shift: int = 0) -> torch.Tensor:
+        """Coefficient `index` of backward(f) without the full inverse:
+        (..., P, N) residues (< 2^31) -> (...,) int64. The inverse is
+        linear, so one coefficient is a Shoup dot against a fixed row of
+        the inverse matrix (the GLWE matmul's body extraction)."""
+        self._check(f)
+        prod = self.pointwise_shoup(f, self._inv_coeff_row(index))  # [0, 2p)
+        s = prod.to(torch.int64).sum(dim=-1, keepdim=True)  # < N * 2p < 2^44
+        r = self.reduce_u64_domain(s, canonical=True)
+        x = self.crt_reconstruct([r[..., i, 0] for i in range(self.n_primes)])
+        return x << shift if shift else x
+
     def polymul(self, a_small: torch.Tensor, b_u64: torch.Tensor) -> torch.Tensor:
         fa = self.forward_small(a_small)
         fb = self.forward_u64(b_u64)

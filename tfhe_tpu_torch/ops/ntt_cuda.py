@@ -141,6 +141,14 @@ def _require_kernel_n(engine, what: str):
         raise ValueError(f"{what} takes N in [256, 4096], got N = {engine.n}")
 
 
+def check_rows(rows: int, n_primes: int, what: str):
+    """K1 and K2 launch one block per (row pair, prime) in a 1-D grid and
+    take `rows` as an int: both must stay below 2^31 (the element offsets
+    inside the kernels are size_t, so the tensors may exceed 2^31 words)."""
+    if rows > 2**31 - 1 or n_primes * ((rows + 1) // 2) > 2**31 - 1:
+        raise ValueError(f"{what}: {rows} rows x {n_primes} primes exceed the kernel's 2^31 - 1 grid")
+
+
 def _require_cuda(x: torch.Tensor, what: str):
     if not x.is_cuda:
         raise ValueError(f"{what} launches a CUDA kernel and needs a CUDA tensor, got {x.device}")
@@ -160,6 +168,7 @@ def forward(engine, x: torch.Tensor, small: bool) -> torch.Tensor:
     # for an int32 tensor)
     xf = _aligned(x.to(torch.int32 if small else torch.int64).reshape(-1, n))
     rows = xf.shape[0]
+    check_rows(rows, n_pr, "ntt_cuda.forward")
     out = torch.empty((rows, n_pr, n), dtype=torch.int32, device=x.device)
     if rows:
         tw, _ = kernel_tables(engine)
@@ -190,6 +199,7 @@ def inverse(engine, f: torch.Tensor) -> torch.Tensor:
     batch = f.shape[:-2]
     ff = _aligned(f.to(torch.int32).reshape(-1, n_pr, n))
     rows = ff.shape[0]
+    check_rows(rows, n_pr, "ntt_cuda.inverse")
     out = torch.empty_like(ff)
     if rows:
         tw, pp = kernel_tables(engine)

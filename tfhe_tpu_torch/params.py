@@ -1,9 +1,10 @@
-"""Parameter sets of the shortint path, classic and multi-bit.
+"""Parameter sets: shortint (classic and multi-bit), boolean gates and the
+GLWE encrypted x clear matmul.
 
-A copy of the dataclasses and named sets of `tfhe_tpu/params.py` that the
-port runs (the port imports nothing of the JAX package). Field names,
-values and the canonical-JSON hash are the same, so a parameter set names
-the same keys and ciphertext shapes in both packages.
+A copy of the dataclasses and named sets of `tfhe_tpu/params.py` (the
+port imports nothing of the JAX package). Field names, values and the
+canonical-JSON hash are the same, so a parameter set names the same keys
+and ciphertext shapes in both packages.
 
 All ciphertext moduli are q = 2^64 (int64 tensors carrying u64 bits).
 """
@@ -92,13 +93,65 @@ class ShortintParams:
         return 2**Q_BITS // self.plaintext_modulus
 
     def to_json(self) -> str:
-        return json.dumps(
-            dataclasses.asdict(self), sort_keys=True, separators=(",", ":")
-        )
+        return _canonical_json(self)
 
     @property
     def hash(self) -> str:
         return hashlib.sha256(self.to_json().encode()).hexdigest()
+
+
+@dataclasses.dataclass(frozen=True)
+class BooleanParams:
+    """Boolean gate bootstrapping: bits at +-1/8 of the torus, every gate a
+    linear combination and one sign-test PBS, then a keyswitch."""
+
+    name: str
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_noise: NoiseDistribution
+    glwe_noise: NoiseDistribution
+    pbs: GadgetParams
+    ks: GadgetParams
+
+    @property
+    def big_lwe_dimension(self) -> int:
+        return self.glwe_dimension * self.polynomial_size
+
+    def to_json(self) -> str:
+        return _canonical_json(self)
+
+    @property
+    def hash(self) -> str:
+        return hashlib.sha256(self.to_json().encode()).hexdigest()
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulParams:
+    """GLWE encrypted x clear matmul: inputs packed into GLWE polynomials of
+    size N at delta = 2^(64 - bits_reserved_for_computation), results packed
+    back by a packing keyswitch and stored at 2^ct_modulus_out_bits."""
+
+    name: str
+    glwe_dimension: int
+    polynomial_size: int
+    glwe_noise: NoiseDistribution
+    bits_reserved_for_computation: int
+    packing_ks: GadgetParams
+    packing_ks_noise: NoiseDistribution
+    ct_modulus_in_bits: int = 39
+    ct_modulus_out_bits: int = 26
+
+    def to_json(self) -> str:
+        return _canonical_json(self)
+
+    @property
+    def hash(self) -> str:
+        return hashlib.sha256(self.to_json().encode()).hexdigest()
+
+
+def _canonical_json(obj) -> str:
+    return json.dumps(dataclasses.asdict(obj), sort_keys=True, separators=(",", ":"))
 
 
 # The fhevm default: 2-bit message + 2-bit carry blocks; k=1, N=2048,
@@ -151,6 +204,43 @@ PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128 = dataclasses.re
     name="PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128",
 )
 
+# Boolean gates: k=2, N=1024, PBS level 3 / base_log 9, so the gate's PBS
+# takes the loop of external products.
+BOOLEAN_PARAMS_128 = BooleanParams(
+    name="BOOLEAN_PARAMS_128",
+    lwe_dimension=680,
+    glwe_dimension=2,
+    polynomial_size=1024,
+    lwe_noise=NoiseDistribution.tuniform(48),
+    glwe_noise=NoiseDistribution.tuniform(17),
+    pbs=GadgetParams(base_log=9, level=3),
+    ks=GadgetParams(base_log=4, level=3),
+)
+
+# The GLWE matmul default (concrete-ml-extensions' PARAMS_8B_2048_NEW):
+# N=2048, k=1, 27 compute bits, packing KS level 2 / base_log 14.
+PARAMS_8B_2048 = MatmulParams(
+    name="PARAMS_8B_2048",
+    glwe_dimension=1,
+    polynomial_size=2048,
+    glwe_noise=NoiseDistribution.tuniform(17),
+    bits_reserved_for_computation=27,
+    packing_ks=GadgetParams(base_log=14, level=2),
+    packing_ks_noise=NoiseDistribution.tuniform(17),
+    ct_modulus_in_bits=39,
+    ct_modulus_out_bits=26,
+)
+
+# Tree-ensemble matmul: exact small integers need the decrypt error far
+# below half an LSB, so a 32-bit output modulus and 20 compute bits. Not in
+# the registry, as in the JAX package.
+TREES_MATMUL = dataclasses.replace(
+    PARAMS_8B_2048,
+    name="TREES_MATMUL",
+    bits_reserved_for_computation=20,
+    ct_modulus_out_bits=32,
+)
+
 # Toy sets: no security, exact algorithms, for tests at small sizes.
 TOY_SHORTINT = ShortintParams(
     name="TOY_SHORTINT",
@@ -179,6 +269,29 @@ TOY_SHORTINT_CORPUS = dataclasses.replace(
     lwe_dimension=8,
 )
 
+TOY_BOOLEAN = BooleanParams(
+    name="TOY_BOOLEAN",
+    lwe_dimension=16,
+    glwe_dimension=1,
+    polynomial_size=128,
+    lwe_noise=NoiseDistribution.tuniform(8),
+    glwe_noise=NoiseDistribution.tuniform(5),
+    pbs=GadgetParams(base_log=10, level=2),
+    ks=GadgetParams(base_log=4, level=3),
+)
+
+TOY_MATMUL = MatmulParams(
+    name="TOY_MATMUL",
+    glwe_dimension=1,
+    polynomial_size=256,
+    glwe_noise=NoiseDistribution.tuniform(6),
+    bits_reserved_for_computation=20,
+    packing_ks=GadgetParams(base_log=14, level=2),
+    packing_ks_noise=NoiseDistribution.tuniform(6),
+    ct_modulus_in_bits=39,
+    ct_modulus_out_bits=26,
+)
+
 _REGISTRY = {
     p.name: p
     for p in [
@@ -187,14 +300,18 @@ _REGISTRY = {
         PARAM_MULTI_BIT_GROUP_2_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
         PARAM_MULTI_BIT_GROUP_4_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+        BOOLEAN_PARAMS_128,
+        PARAMS_8B_2048,
         TOY_SHORTINT,
         TOY_SHORTINT_NOISELESS,
         TOY_SHORTINT_CORPUS,
+        TOY_BOOLEAN,
+        TOY_MATMUL,
     ]
 }
 
 
-def by_name(name: str) -> ShortintParams:
+def by_name(name: str):
     return _REGISTRY[name]
 
 

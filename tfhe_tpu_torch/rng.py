@@ -2,9 +2,11 @@
 
 `FheRng` draws from an explicit CPU `torch.Generator` seeded by one
 integer and moves the samples to the requested device, so the same seed
-gives the same keys on the CPU and on the card. It cannot reproduce the
-JAX threefry stream of tfhe_tpu.rng; tests that compare the two packages
-bit for bit carry keys across with `tfhe_tpu_torch.convert`.
+gives the same keys on the CPU and on the card. `split` and `fork` seed
+children from draws of the parent's generator, so they too follow from
+the one seed. None of it reproduces the JAX threefry stream of
+tfhe_tpu.rng: tests that compare the two packages bit for bit carry keys
+across with `tfhe_tpu_torch.convert`.
 
 Security note: in deployment the seed must come from an OS CSPRNG.
 """
@@ -26,6 +28,18 @@ class FheRng:
         self._gen = torch.Generator(device="cpu")
         self._gen.manual_seed(int(seed))
         self.device = _device.resolve(device)
+
+    def _child_seed(self) -> int:
+        return int(torch.randint(0, 2**63 - 1, (), generator=self._gen, dtype=torch.int64))
+
+    def split(self, n: int = 2) -> list["FheRng"]:
+        """n independent children, seeded by n draws of this generator
+        (which advances); same seed, same children."""
+        return [FheRng(self._child_seed(), self.device) for _ in range(n)]
+
+    def fork(self) -> "FheRng":
+        """One child, seeded by one draw of this generator."""
+        return FheRng(self._child_seed(), self.device)
 
     def _u32(self, shape) -> torch.Tensor:
         return torch.randint(0, 2**32, tuple(shape), generator=self._gen, dtype=torch.int64)
