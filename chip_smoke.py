@@ -7,7 +7,8 @@ Builds the hand-written kernels from tfhe_tpu_torch/csrc with nvcc and
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main paths give it (bit-exact; the forward NTT mod p; K1 and
 K2 also at the loop path's shapes, at ragged row counts of 1, 3 and 1537
-with the extreme int32 and u64 inputs, at N = 1024 and 2048; K3 and K4
+with the extreme int32 and u64 inputs, at N = 1024 and 2048, and at the
+compact-PKE public key's (1152, 1, 1024) u64 masks; K3 and K4
 also at ragged batches of 1, 3 and 64 ciphertexts). Then it drives,
 through the entry points a user calls, at full width:
 
@@ -41,10 +42,24 @@ through the entry points a user calls, at full width:
    plain versions (run in chunks of rows), and a profiler window over one
    matmul (`matmul:` lines);
 7. GlweLinearLayerExecutor 2048 -> 1024 at batch 32 with keys on the card:
-   EXECUTE within 256 accumulator LSBs of DISABLE (`linear:` line).
+   EXECUTE within 256 accumulator LSBs of DISABLE (`linear:` line);
+8. the fhevm API surface (`api_phase`): create_instance() on the card
+   (GROUP_3, PKE_PARAMS_2M128 behind it; no key cache file read or
+   written), an FheServer on 127.0.0.1:0 driven by the port's FheClient:
+   /health, /publickey,
+   /keyurl, two /input-proof requests of 32 euint64 values each (compact-PKE
+   lists with ZK proofs, 2048 bits, the CRS's full size), one batched
+   /evaluate of an ERC20 transfer per pair (le, select against an encrypted
+   0, sub, add), /allow, a KMS-verified /public-decrypt, /user-decrypt
+   sealed to an ML-KEM key from generate_keypair, /verify; every value
+   checked against numpy, K4 launched on /evaluate and K3 not; ms per
+   request and K1-K4 launches per route, the ZK prove and verify seconds
+   (`api:` lines).
 
 The launch counts are set to 0 just before each path and read just
-after it; the kernel-vs-plain comparisons run outside those windows. It
+after it; the kernel-vs-plain comparisons run outside those windows. Each
+profiler window runs its call once under a warm-up step first and sums
+only the device events issued inside the recorded call. It
 prints the card, build time, per-kernel times beside their bounds,
 keygen seconds, PBS/s, transfers/s, gates/s, ms per matmul and Gmac/s,
 K3's and K4's times at 64, 128 and 512 ciphertexts (`ms_by_batch`), K1's
@@ -58,6 +73,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -66,6 +82,7 @@ SEED = 1234
 BATCH = 512
 ERC20_BATCH = 32
 ERC20_BITS = 64
+API_USER_HANDLES = 4  # balances decrypted through /user-decrypt's threshold protocol
 MM_R, MM_C, MM_O = 32, 2048, 1024  # enc(R x C) x clear(C x O), scripts/bench_matmul.py's shape
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
@@ -152,24 +169,52 @@ def profile_window(label: str, what: str, fn, steps: int | None, untraced_ms: fl
     """One call of `fn` under torch.profiler: kernel launches (per rotation
     step where `steps` is given), the card's busy share of the window and
     of the untraced time, device time by kernel and by torch op, and K1's
-    and K2's share, printed as `<label> profile:` lines."""
+    and K2's share, printed as `<label> profile:` lines. A schedule with one
+    warm-up step runs `fn` once under the started tracer before the
+    recorded call: a window without it lost its first kernel (a matmul's
+    window recorded 1 of its 2 K1 launches). The recorded call runs inside
+    a `window` range, and a device event counts only when the runtime call
+    that issued it (the same correlation id) ran inside that range on the
+    host's clock: a rule on the device events' own timestamps let a few
+    kernels from outside the call in (785 K1 in a window of 780)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        with record_function("window"):
+            fn()
+            torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    events = prof.events()
+    win = [ev for ev in events if ev.name == "window" and str(ev.device_type).endswith("CPU")]
+    if len(win) != 1:
+        print(f"{label} profile: torch.profiler recorded {len(win)} `window` ranges, not 1; no breakdown", flush=True)
+        return {}
+    w0, w1 = win[0].time_range.start, win[0].time_range.end
+    # the runtime calls (cudaLaunchKernel, cudaMemcpyAsync, ...) made inside
+    # the window, by correlation id
+    issued = {ev.id for ev in events if str(ev.device_type).endswith("CPU") and ev.name.startswith("cu")
+              and w0 <= ev.time_range.start <= w1}
     by_name, by_op = {}, {}
-    for ev in prof.key_averages():
+    for ev in events:
+        # the range annotations (ours and the schedule's step) span the
+        # window's kernels on both the host and the device timelines
+        if ev.name == "window" or ev.name.startswith("ProfilerStep"):
+            continue
+        on_device = str(ev.device_type).endswith("CUDA")
         us = self_device_us(ev)
         # kernels (device-side events) by name; the torch ops that launched
         # them report the same time, kept apart as the breakdown by op
-        if us > 0:
-            on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-            (by_name if on_device else by_op)[ev.key] = (us / 1e3, ev.count)
+        if us > 0 and (ev.id in issued if on_device else w0 <= ev.time_range.start <= w1):
+            t, cnt = (by_name if on_device else by_op).get(ev.name, (0.0, 0))
+            (by_name if on_device else by_op)[ev.name] = (t + us / 1e3, cnt + 1)
     if not by_name:
         print(f"{label} profile: torch.profiler recorded no device-side kernel events; the times above are "
               "CUDA events", flush=True)
@@ -251,6 +296,181 @@ def rotation_bytes(batch: int, steps: int, key_bytes: int, rows_per_step: int, n
     )
 
 
+def api_phase(dev, read_counts) -> dict:
+    """The fhevm serving flow through the port's API surface: create_instance
+    (GROUP_3 with PKE_PARAMS_2M128 behind it; the key cache untouched), an
+    FheServer on 127.0.0.1:0 driven by the port's FheClient: /health,
+    /publickey, /keyurl, two /input-proof requests of ERC20_BATCH values each
+    (balances, amounts; compact-PKE lists with ZK proofs), one batched
+    /evaluate of an ERC20 transfer per pair (le, select against an encrypted
+    0, sub, add), /allow, a KMS-verified /public-decrypt of the new balances,
+    /user-decrypt sealed to an ML-KEM key from generate_keypair, /verify.
+    Every decrypted value is checked against numpy. Returns the seconds,
+    per-route ms and per-route kernel launches (K1-K4 from `read_counts`)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.api import compact_pke as cp
+    from tfhe_tpu_torch.api import kms, zkpok
+    from tfhe_tpu_torch.api import secp256k1 as ec
+    from tfhe_tpu_torch.api.client import FheClient
+    from tfhe_tpu_torch.api.handles import FhevmHandle
+    from tfhe_tpu_torch.api.instance import create_instance
+    from tfhe_tpu_torch.api.serve import FheServer
+    from tfhe_tpu_torch.api.types import FHE_TYPES
+    from tfhe_tpu_torch import params as tp
+    from tfhe_tpu_torch.rng import FheRng
+    from tfhe_tpu_torch.utils import keycache, serialization
+
+    out = {"routes": {}}
+
+    def timed(route, fn):
+        """Run one request; record its ms and the kernel launches it made
+        (summed over the route's requests)."""
+        before = read_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        r = out["routes"].setdefault(route, {"requests": 0, "ms": 0.0, "launches": {k: 0 for k in after}})
+        r["requests"] += 1
+        r["ms"] += ms
+        for k in after:
+            r["launches"][k] += after[k] - before[k]
+        return res
+
+    # on the card keygen is the warm start: the GROUP_3 key pair (~2.4 GB
+    # serialized) is neither read from nor written to the key cache
+    key_file = keycache.cache_path(tp.PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128, SEED + 11, None)
+    check(not os.path.exists(key_file), f"api: no key cache file before create_instance() ({key_file})")
+    t0 = time.perf_counter()
+    inst = create_instance(seed=SEED + 11, device=dev)
+    torch.cuda.synchronize()
+    out["keygen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pke = inst.pke_keys
+    torch.cuda.synchronize()
+    out["pke_keygen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crs = inst.crs
+    out["crs_s"] = time.perf_counter() - t0
+    out["params"], out["pke_params"] = inst.params.name, pke.params.name
+    check(not os.path.exists(key_file), f"api: create_instance() on the card wrote no key cache file ({key_file})")
+    p = inst.params
+    C, U = "0x" + "c0" * 20, "0x" + "a1" * 20
+    pairs, bits = ERC20_BATCH, ERC20_BITS
+    t = FHE_TYPES[f"euint{bits}"]
+    host = np.random.default_rng(21)
+    mask = (1 << bits) - 1
+    bal = host.integers(0, 1 << (bits // 2), pairs, dtype=np.uint64)
+    amt = host.integers(0, 1 << (bits // 2 + 1), pairs, dtype=np.uint64)  # some overdraw
+    srv = FheServer(inst).start()
+    try:
+        cl = FheClient(f"http://127.0.0.1:{srv.port}", timeout=900.0)
+        check(timed("/health", cl.health)["status"] == "ok", "api: /health")
+        pk = timed("/publickey", cl.get_public_key)
+        check(pk["paramsHash"] == p.hash and len(pk["publicKey"]) > 0, "api: /publickey")
+        check(timed("/keyurl", lambda: cl._get("/keyurl"))["response"]["fhe_key_info"][0]["params_hash"] == p.hash,
+              "api: /keyurl")
+
+        def submit(values, seed):
+            """Client side of an input: the builder's block values, the
+            compact-PKE list and its ZK proof; then one /input-proof."""
+            b = inst.create_encrypted_input(C, U)
+            for v in values:
+                b._add(t.name, int(v))
+            blocks, _ = b._block_values()
+            aux = inst.input_aux_data(C, U)
+            t0 = time.perf_counter()
+            lst, r, e = cp.compact_pke_encrypt_with_witness(pke, blocks, FheRng(seed, dev))
+            torch.cuda.synchronize()
+            out.setdefault("encrypt_s", []).append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            proof = zkpok.prove(crs, pke.pke_pk, lst, r, np.asarray(blocks, dtype=np.uint64), e, aux)
+            out.setdefault("prove_s", []).append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            zkpok.verify(crs, pke.pke_pk, lst, proof, aux)  # what the server does first, timed alone
+            out.setdefault("verify_s", []).append(time.perf_counter() - t0)
+            body = {"ciphertext": serialization.serialize(lst).hex(), "zkProof": proof.to_bytes().hex(),
+                    "types": [t.name] * len(values), "contract": C, "user": U}
+            out.setdefault("proof_bytes", len(proof.to_bytes()))
+            resp = timed("/input-proof", lambda: cl._post("/input-proof", body))
+            check(len(resp["handles"]) == len(values) and len(resp["signatures"]) >= resp["threshold"],
+                  "api: /input-proof returns one handle a value and a quorum of signatures")
+            return resp
+
+        rb, ra = submit(bal, SEED + 12), submit(amt, SEED + 13)
+        out["input_bits"] = pairs * bits
+        check(timed("/verify", lambda: cl._post("/verify", {"handles": rb["handles"], "inputProof": rb["inputProof"],
+                                                             "user": U, "contract": C}))["valid"],
+              "api: /verify accepts the balances' input proof")
+
+        # the transfer list: later ops name earlier results by their
+        # deterministic handles, and /evaluate runs it in dependency waves
+        def h_of(op, operands, tname):
+            return FhevmHandle.from_op(op, [bytes.fromhex(x[2:]) for x in operands], inst.chain_id,
+                                       FHE_TYPES[tname].type_id).hex()
+
+        zero = h_of("xor", [ra["handles"][0]] * 2, t.name)
+        ops = [("xor", [ra["handles"][0]] * 2)]
+        new_from, new_to = [], []
+        for hb, ha in zip(rb["handles"], ra["handles"]):
+            cond = h_of("le", [ha, hb], "ebool")
+            moved = h_of("select", [cond, ha, zero], t.name)
+            ops += [("le", [ha, hb]), ("select", [cond, ha, zero]), ("sub", [hb, moved]), ("add", [hb, moved])]
+            new_from.append(h_of("sub", [hb, moved], t.name))
+            new_to.append(h_of("add", [hb, moved], t.name))
+        res = timed("/evaluate", lambda: cl.evaluate_many(ops))
+        check(res["handles"][3::4] == new_from and res["handles"][4::4] == new_to,
+              "api: /evaluate returns the handles the client derived")
+        check(res["batchedGroups"] == 4 and res["singleOps"] == 1,
+              f"api: /evaluate ran le, select, sub, add as 4 batched groups and the zero alone ({res})")
+        out["evaluate"] = {k: res[k] for k in ("gasUsed", "batchedGroups", "singleOps")}
+        out["ops"] = len(ops)
+
+        moved_np = np.where(amt <= bal, amt, 0)
+        want_from = [int(x) for x in (bal - moved_np) & mask]
+        want_to = [int(x) for x in (bal + moved_np) & mask]
+        for h in new_from + new_to:
+            timed("/allow", lambda: cl.allow(h))
+        dec = timed("/public-decrypt", lambda: cl.public_decrypt_verified(new_from + new_to))["values"]
+        check([int(dec[h]) for h in new_from] == want_from and [int(dec[h]) for h in new_to] == want_to,
+              "api: /public-decrypt (KMS-verified) gives bal - moved and bal + moved")
+
+        # user decrypt: EIP-712-signed request, shares sealed to the user's
+        # ML-KEM key, combined by the client
+        user_priv = ec.keygen(b"api-user")
+        user = ec.address(user_priv)
+        asked = new_from[:API_USER_HANDLES]
+        for h in asked:
+            for acct in (user, C):
+                timed("/allow", lambda: cl.allow(h, account=acct, for_decryption=False))
+        kp = inst.generate_keypair()
+        ek, dk = bytes.fromhex(kp["publicKey"]), bytes.fromhex(kp["privateKey"])
+        info = timed("/kms-info", cl.kms_info)
+        start = int(time.time()) - 60
+        sig = ec.sign(user_priv, kms.user_decrypt_request_digest(ek, [C], info["chainId"], start, 1,
+                                                                 info["verifyingContract"]))
+        body = {"handleContractPairs": [{"handle": h, "contractAddress": C} for h in asked], "userAddress": user,
+                "publicKey": ek.hex(), "signature": sig.hex(), "contractAddresses": [C], "startTimestamp": start,
+                "durationDays": 1}
+        resp = timed("/user-decrypt", lambda: cl._post("/user-decrypt", body))
+        t0 = time.perf_counter()
+        items = [{"handle": bytes.fromhex(i["handle"][2:]),
+                  "blocks": np.frombuffer(bytes.fromhex(i["blocks"]), dtype=np.uint64).reshape(i["shape"]),
+                  "type": i["type"], "bits": i["bits"]} for i in resp["items"]]
+        got = kms.process_user_decrypt_response(resp["responses"], dk, items, resp["kmsSigners"], resp["threshold"],
+                                                info["delta"], info["plaintextModulus"], bytes.fromhex(resp["nonce"]),
+                                                info["bitsPerBlock"])
+        out["user_decrypt_client_s"] = time.perf_counter() - t0
+        check(got == want_from[:API_USER_HANDLES], "api: /user-decrypt unseals and combines to bal - moved")
+        out["user_handles"] = len(asked)
+    finally:
+        srv.stop()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -262,6 +482,7 @@ def main() -> int:
 
     from tfhe_tpu_torch import _build
     from tfhe_tpu_torch import params as tp
+    from tfhe_tpu_torch.api.compact_pke import PKE_PARAMS_2M128 as PKE
     from tfhe_tpu_torch.core import bootstrap as bt
     from tfhe_tpu_torch.core import multibit as mb
     from tfhe_tpu_torch.core.lwe import keyswitch
@@ -470,6 +691,20 @@ def main() -> int:
           f"K1 (int32, u64) and K2 vs plain at ragged rows with extreme inputs {edge}")
     print(f"check K1/K2 at the loop shapes ({rows11}, {n11}): err {k1_loop_err}, {k2_loop_err}; "
           f"ragged rows with extreme inputs, (K1 i32, K1 u64, K2) err {edge}", flush=True)
+    # K1 and K2 at the compact-PKE public key's encryption (path 8): k*N + 128
+    # zero-encryptions at N = 1024, K1 on the u64 masks, K2 on its output
+    eng_pke = get_folded_engine(PKE.polynomial_size, dev)
+    rows_pke = PKE.glwe_dimension * PKE.polynomial_size + 128
+    masks = rand_u64((rows_pke, PKE.glwe_dimension, PKE.polynomial_size))
+    f_pke = eng_pke.forward_u64(masks)
+    k1_pke_err = mod_err(f_pke, eng_pke.forward_u64_plain(masks))
+    f_pke = f_pke[:, 0]
+    k2_pke_err = exact_err(ntt_cuda.inverse(eng_pke, f_pke), eng_pke.inverse_plain(f_pke))
+    check(k1_pke_err == 0 and k2_pke_err == 0,
+          f"K1 (u64) and K2 vs plain at the compact-PKE key's shapes (err {k1_pke_err}, {k2_pke_err})")
+    print(f"check K1 (u64) at the compact-PKE key ({rows_pke}, {PKE.glwe_dimension}, {PKE.polynomial_size}) "
+          f"err {k1_pke_err}; K2 ({rows_pke}, {n_pr}, {PKE.polynomial_size}) err {k2_pke_err}", flush=True)
+    del masks, f_pke
     print("ptxas K1/K2: " + "; ".join(ln for ln in ptxas_of("ntt")), flush=True)
 
     # K3: one launch of 4 steps, random accumulators and key rows, at ragged
@@ -859,10 +1094,30 @@ def main() -> int:
           flush=True)
     del layer
 
+    # -- path 8: the fhevm API surface, create_instance + FheServer, GROUP_3 ---
+    reset_counts()
+    api = api_phase(dev, read_counts)
+    paths["api"] = read_counts()
+    ev = api["routes"]["/evaluate"]["launches"]
+    check(api["params"] == MB3.name and api["pke_params"] == "V1_PKE_MESSAGE_2_CARRY_2_TUNIFORM_2M128",
+          f"api: create_instance() defaults to GROUP_3 with PKE_PARAMS_2M128 ({api['params']}, {api['pke_params']})")
+    check(ev["K4"] > 0 and ev["K3"] == 0, f"api: /evaluate launches K4 and not K3 ({ev})")
+    print(f"api: create_instance() on the card ({api['params']}, {api['pke_params']}): keygen_s {api['keygen_s']:.3f}, "
+          f"pke_keygen_s {api['pke_keygen_s']:.3f}, crs_s {api['crs_s']:.6f}; ZK prove_s "
+          + ", ".join(f"{s:.3f}" for s in api["prove_s"]) + " and verify_s "
+          + ", ".join(f"{s:.3f}" for s in api["verify_s"])
+          + f" (host numpy, {api['input_bits']} bits a proof, {api['proof_bytes']} proof bytes); client-side compact-PKE "
+          "encrypt_s " + ", ".join(f"{s:.4f}" for s in api["encrypt_s"]) + f"; /evaluate {api['ops']} ops, "
+          f"{api['evaluate']}; user-decrypt client combine_s {api['user_decrypt_client_s']:.3f} over "
+          f"{api['user_handles']} handles; launches {paths['api']}", flush=True)
+    for route, r in api["routes"].items():
+        print(f"api: {route} {r['ms'] / r['requests']:.3f} ms per request over {r['requests']} "
+              f"request{'s' if r['requests'] > 1 else ''}; launches {r['launches']}", flush=True)
+
     kern["K1"] = dict(
         name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
-                                                                   k1_bool_err, k1_pks_err,
+                                                                   k1_bool_err, k1_pks_err, k1_pke_err,
                                                                    *(v[0] for v in edge.values()),
                                                                    *(v[1] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop, "boolean": k1_bool,
@@ -872,7 +1127,8 @@ def main() -> int:
     kern["K2"] = dict(
         name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:518",
-        max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, *(v[2] for v in edge.values())),
+        max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, k2_pke_err,
+                        *(v[2] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop, "boolean": k2_bool,
                                       "matmul_mask": k2_mask}, **{
             f: k2_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,

@@ -1,0 +1,244 @@
+"""The port's FhevmInstance and FheServer against the JAX package, on the CPU.
+
+One JAX instance at TOY_SHORTINT (seed 19); the port's instance runs on the
+same keys, carried across by patching the port's `keycache.load_or_keygen`
+with `convert.keys_from_reference`, and on the same input ciphertexts
+(encrypted under the JAX client key, registered in both stores):
+* one fhe_op of each family (binary, scalar binary, compare, shift,
+  select, cast, div, ebool) and one mixed fhe_op_many batch give
+  ciphertexts bit-identical to the JAX instance's, with equal degrees and
+  equal result handles;
+* the port's FheServer answers the JAX package's own FheClient: /health,
+  /publickey, a full /input-proof submission (a JAX-serialized list and a
+  proof that the JAX verifier accepts), a batched /evaluate, a verified
+  /public-decrypt, the full /user-decrypt protocol and the API-key check.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tfhe_tpu import params as jp
+from tfhe_tpu.api import compact_pke as jcp
+from tfhe_tpu.api import handles as jhd
+from tfhe_tpu.api import types as jty
+from tfhe_tpu.api import secp256k1 as jec
+from tfhe_tpu.api import zkpok as jzk
+from tfhe_tpu.api.client import FheClient, FheClientUnauthorizedError
+from tfhe_tpu.api.instance import create_instance as jax_create_instance
+from tfhe_tpu.models import integer as jri
+from tfhe_tpu.models import shortint as jsi
+from tfhe_tpu.rng import FheRng as JaxRng
+from tfhe_tpu.utils import serialization as jser
+from tfhe_tpu_torch import _u64, convert
+from tfhe_tpu_torch import params as tp
+from tfhe_tpu_torch.api import compact_pke as tcp
+from tfhe_tpu_torch.api import types as tty
+from tfhe_tpu_torch.api import zkpok as tzk
+from tfhe_tpu_torch.api.instance import create_instance
+from tfhe_tpu_torch.api.serve import FheServer
+from tfhe_tpu_torch.models import integer as tri
+from tfhe_tpu_torch.models import shortint as tsi
+from tfhe_tpu_torch.rng import FheRng
+from tfhe_tpu_torch.utils import keycache
+
+C, U = "0x" + "11" * 20, "0x" + "22" * 20
+A, B = 177, 23
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs several test processes side by side; the port's many
+    small tensor ops run fastest, and slow the other processes least, on
+    one intra-op thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _to_port(t, ct):
+    if isinstance(ct, jri.RadixCiphertext):
+        return tty.FHE_TYPES[t.name], tri.RadixCiphertext(
+            blocks=convert.u64_tensor(ct.blocks), params=tp.TOY_SHORTINT, degrees=ct.degrees
+        )
+    return tty.FHE_TYPES[t.name], tsi.Ciphertext(
+        ct=convert.u64_tensor(ct.ct), params=tp.TOY_SHORTINT, degree=ct.degree, noise_level=ct.noise_level
+    )
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX instance, port instance on its keys, input handles a, b: euint8,
+    t, f: ebool). The inputs are encrypted under the JAX client key and
+    registered in both stores, as a verified input is, under input handles
+    derived from their serialized blobs."""
+    jinst = jax_create_instance(jp.TOY_SHORTINT, seed=19)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(
+            keycache,
+            "load_or_keygen",
+            lambda params, seed=0, device=None, **kw: (*convert.keys_from_reference(jinst._ck, jinst._sk, device=device), {}),
+        )
+        tinst = create_instance(tp.TOY_SHORTINT, seed=19, device="cpu")
+    ints = jri.encrypt_radix(jinst._ck, jnp.asarray([A, B], dtype=jnp.uint64), 8, JaxRng(5))
+    bools = jsi.encrypt(jinst._ck, jnp.asarray([1, 0], dtype=jnp.uint64), JaxRng(6))
+    cts = [("euint8", jri.RadixCiphertext(blocks=ints.blocks[i], params=jp.TOY_SHORTINT, degrees=ints.degrees))
+           for i in range(2)]
+    cts += [("ebool", jsi.Ciphertext(ct=bools.ct[i], params=jp.TOY_SHORTINT, degree=1, noise_level=1))
+            for i in range(2)]
+    handles = []
+    for idx, (tname, ct) in enumerate(cts):
+        t = jty.FHE_TYPES[tname]
+        h = jhd.FhevmHandle.from_ciphertext_blob(jser.serialize(ct), idx, t.type_id, jinst.chain_id).to_bytes32()
+        jinst._store[h] = (t, ct)
+        tinst._store[h] = _to_port(t, ct)
+        for inst in (jinst, tinst):
+            inst._provenance[h] = "input"
+            for acct in (C, U):
+                inst.acl.allow(h, acct)
+        handles.append(h)
+    return jinst, tinst, handles
+
+
+def _same_ciphertext(jct, tct):
+    if isinstance(jct, jri.RadixCiphertext):
+        assert isinstance(tct, tri.RadixCiphertext) and tct.degrees == jct.degrees
+        np.testing.assert_array_equal(_u64.u64_to_numpy(tct.blocks), np.asarray(jct.blocks))
+    else:
+        assert isinstance(tct, tsi.Ciphertext)
+        assert (tct.degree, tct.noise_level) == (jct.degree, jct.noise_level)
+        np.testing.assert_array_equal(_u64.u64_to_numpy(tct.ct), np.asarray(jct.ct))
+
+
+# (op, args by input name or literal, clear result)
+FAMILIES = {
+    "binary": ("add", ("a", "b"), (A + B) % 256),
+    "binary_scalar": ("sub", ("a", 200), (A - 200) % 256),
+    "compare": ("lt", ("a", "b"), int(A < B)),
+    "shift": ("shl", ("a", 3), (A << 3) % 256),
+    "select": ("select", ("f", "a", "b"), B),
+    "cast": ("cast", ("a", "euint16"), A),
+    "div": ("div", ("a", 7), A // 7),
+    "ebool": ("or", ("t", "f"), 1),
+    "ebool_not": ("not", ("t",), 0),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_fhe_op_matches_reference(pair, family):
+    jinst, tinst, (ha, hb, ht, hf) = pair
+    names = {"a": ha, "b": hb, "t": ht, "f": hf}
+    op, args, want = FAMILIES[family]
+    args = [names.get(x, x) if isinstance(x, str) else x for x in args]
+    jh = jinst.fhe_op(op, *args)
+    th = tinst.fhe_op(op, *args)
+    assert th == jh
+    _same_ciphertext(jinst._store[jh][1], tinst._store[th][1])
+    assert tinst._store[th][0].name == jinst._store[jh][0].name
+    tinst.acl.allow_for_decryption(th)
+    assert tinst.public_decrypt([th])["0x" + th.hex()] == want
+
+
+def test_fhe_op_many_mixed_batch_matches_reference(pair):
+    """One batched program over a handle rhs and a scalar rhs."""
+    jinst, tinst, (ha, hb, _, _) = pair
+    pairs = [(ha, hb), (hb, 9), (ha, 250)]
+    assert len({tinst.batch_key("add", list(p)) for p in pairs}) == 1
+    jhs = jinst.fhe_op_many("add", pairs)
+    ths = tinst.fhe_op_many("add", pairs)
+    assert ths == jhs
+    for jh, th in zip(jhs, ths):
+        _same_ciphertext(jinst._store[jh][1], tinst._store[th][1])
+    for th in ths:
+        tinst.acl.allow_for_decryption(th)
+    got = tinst.public_decrypt(ths)
+    assert [got["0x" + h.hex()] for h in ths] == [(A + B) % 256, B + 9, (A + 250) % 256]
+
+
+# -- the port's server, the JAX package's client -------------------------------
+
+
+@pytest.fixture(scope="module")
+def server(pair):
+    srv = FheServer(pair[1]).start()
+    yield srv
+    srv.stop()
+
+
+@pytest.fixture(scope="module")
+def client(server):
+    return FheClient(f"http://127.0.0.1:{server.port}", timeout=120.0)
+
+
+def test_health_and_publickey(client, pair):
+    assert client.health()["status"] == "ok"
+    r = client.get_public_key()
+    assert r["paramsHash"] == tp.TOY_SHORTINT.hash == jp.TOY_SHORTINT.hash
+    pk = jser.deserialize(bytes.fromhex(r["publicKey"]))  # the reference reads the port's blob
+    np.testing.assert_array_equal(np.asarray(pk.zeros), _u64.u64_to_numpy(pair[1].public_key.zeros))
+
+
+def _submit(client, inst, values, contract=C, user=U):
+    """A client-side euint8 input: the port encrypts under the server's PKE
+    key and proves, the JAX package serializes the list; then one
+    /input-proof request through the JAX client."""
+    blocks = [(v >> (2 * i)) & 3 for v in values for i in range(4)]
+    lst, r, e = tcp.compact_pke_encrypt_with_witness(inst.pke_keys, blocks, FheRng(77, device="cpu"))
+    proof = tzk.prove(inst.crs, inst.pke_keys.pke_pk, lst, r, np.asarray(blocks, dtype=np.uint64), e,
+                      inst.input_aux_data(contract, user), seed=3)
+    jlst = jcp.CompactCiphertextList(glwes=jnp.asarray(_u64.u64_to_numpy(lst.glwes)), params=jcp.TOY_PKE,
+                                     n_values=lst.n_values)
+    jcrs = jzk.CompactPkeCrs.from_params(jcp.TOY_PKE, jp.TOY_SHORTINT)
+    jzk.verify(jcrs, _u64.u64_to_numpy(inst.pke_keys.pke_pk), jlst, jzk.CompactPkeProof.from_bytes(proof.to_bytes()),
+               inst.input_aux_data(contract, user))
+    return client._post("/input-proof", {
+        "ciphertext": jser.serialize(jlst).hex(),
+        "zkProof": proof.to_bytes().hex(),
+        "types": ["euint8"] * len(values),
+        "contract": contract,
+        "user": user,
+    })
+
+
+def test_input_evaluate_and_decrypt_round_trip(client, pair):
+    """input -> batched evaluate -> verified public decrypt -> user decrypt,
+    every request from the JAX client."""
+    inst = pair[1]
+    bal, amt = [200, 17, 90], [50, 30, 90]
+    rb = _submit(client, inst, bal)
+    ra = _submit(client, inst, amt)
+    assert len(rb["handles"]) == 3 and rb["threshold"] == 3 and len(rb["signatures"]) == 4
+    assert client._post("/verify", {"handles": rb["handles"], "inputProof": rb["inputProof"],
+                                    "user": U, "contract": C})["valid"]
+    ops = []
+    for hb, ha in zip(rb["handles"], ra["handles"]):
+        ops += [("le", [ha, hb]), ("sub", [hb, ha]), ("add", [hb, ha])]
+    r = client.evaluate_many(ops)
+    assert r["batchedGroups"] == 3 and r["singleOps"] == 0
+    for h in r["handles"]:
+        client.allow(h)
+    vals = client.public_decrypt_verified(r["handles"])["values"]
+    want = []
+    for b, a in zip(bal, amt):
+        want += [int(a <= b), (b - a) % 256, (b + a) % 256]
+    assert [int(vals[h]) for h in r["handles"]] == want
+    priv = jec.keygen(b"serve-user")
+    user = jec.address(priv)
+    for h in r["handles"][1::3]:
+        client.allow(h, account=user, for_decryption=False)
+        client.allow(h, account=C, for_decryption=False)
+    got = client.user_decrypt([(h, C) for h in r["handles"][1::3]], priv)
+    assert got == want[1::3]
+
+
+def test_api_key_is_checked(pair):
+    srv = FheServer(pair[1], api_key="s3cret").start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        with pytest.raises(FheClientUnauthorizedError):
+            FheClient(url, timeout=30.0).health()
+        assert FheClient(url, api_key="s3cret", timeout=30.0).health()["status"] == "ok"
+    finally:
+        srv.stop()

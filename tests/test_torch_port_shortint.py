@@ -189,7 +189,14 @@ def test_package_imports_no_jax():
         "tfhe_tpu_torch.models.integer, tfhe_tpu_torch.parallel.dispatch, "
         "tfhe_tpu_torch.models.boolean, tfhe_tpu_torch.core.packing, tfhe_tpu_torch.core.seeded, "
         "tfhe_tpu_torch.models.glwe_matmul, tfhe_tpu_torch.noise, tfhe_tpu_torch.ml.common, "
-        "tfhe_tpu_torch.ml.quantization, tfhe_tpu_torch.ml.linear; "
+        "tfhe_tpu_torch.ml.quantization, tfhe_tpu_torch.ml.linear, tfhe_tpu_torch.native, "
+        "tfhe_tpu_torch.utils.keccak, tfhe_tpu_torch.utils.serialization, tfhe_tpu_torch.utils.keycache, "
+        "tfhe_tpu_torch.api, tfhe_tpu_torch.api.types, tfhe_tpu_torch.api.acl, tfhe_tpu_torch.api.handles, "
+        "tfhe_tpu_torch.api.secp256k1, tfhe_tpu_torch.api.attestation, tfhe_tpu_torch.api.mlkem, "
+        "tfhe_tpu_torch.api.shamir, tfhe_tpu_torch.api.kms, tfhe_tpu_torch.api.public_key, "
+        "tfhe_tpu_torch.api.threshold, tfhe_tpu_torch.api.compact_pke, tfhe_tpu_torch.api.zkpok, "
+        "tfhe_tpu_torch.api.costs, tfhe_tpu_torch.api.instance, tfhe_tpu_torch.api.serve, "
+        "tfhe_tpu_torch.api.client; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -3,7 +3,9 @@
 The package mirrors `tfhe_tpu` module by module (`torus`, `rng`,
 `params`, `noise`, `core/*`, `ops/*`, `models/shortint`,
 `models/integer`, `models/boolean`, `models/glwe_matmul`, `ml/common`,
-`ml/quantization`, `ml/linear`, `parallel/dispatch`) and imports neither
+`ml/quantization`, `ml/linear`, `parallel/dispatch`, the fhevm API layer
+`api/*`, `utils/keccak`, `utils/serialization`, `utils/keycache` and
+`native`) and imports neither
 JAX nor `tfhe_tpu`. Torus values are int64 tensors carrying u64 bit patterns
 (see `_u64`). Entry points take `device=` and default to "cuda"; on a
 CUDA tensor every kernel wrapper launches its hand-written kernel

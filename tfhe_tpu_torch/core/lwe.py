@@ -111,23 +111,51 @@ class KeyswitchKey:
         return self.ksk.shape[2] - 1
 
     def matmul_rhs(self) -> torch.Tensor:
-        """The limbs as one (n_in*level, 16*W) matrix for the keyswitch
-        product: int8 with W = n_out+1 padded to a multiple of 8 on CUDA
-        (torch._int_mm's shape rule), int32 with W = n_out+1 on the CPU."""
+        """The limbs as the keyswitch product's right-hand side
+        (`limb_matrix`), made once."""
         if self._rhs is None:
-            limbs = self.ksk_limbs
-            w = limbs.shape[-1]
-            if limbs.is_cuda:
-                limbs = torch.nn.functional.pad(limbs, (0, (-w) % 8))
-            else:
-                limbs = limbs.to(torch.int32)
-            self._rhs = limbs.permute(1, 0, 2).reshape(limbs.shape[1], -1).contiguous()
+            self._rhs = limb_matrix(self.ksk_limbs)
         return self._rhs
 
 
 def _u64_to_nibbles(x: torch.Tensor) -> torch.Tensor:
     """(..., m) -> int8 (16, ..., m) 4-bit limbs, LSB first."""
     return torch.stack([(_u64.srl(x, 4 * l) & 0xF).to(torch.int8) for l in range(16)], dim=0)
+
+
+def limb_matrix(limbs: torch.Tensor) -> torch.Tensor:
+    """(16, K, W) int8 4-bit limbs of K rows of u64 -> the (K', 16*W')
+    right-hand side of `limb_product`: int8 with K and W zero-padded to
+    multiples of 8 on CUDA (torch._int_mm's shape rule), int32 with K' = K
+    and W' = W on the CPU."""
+    _, k, w = limbs.shape
+    if limbs.is_cuda:
+        limbs = torch.nn.functional.pad(limbs, (0, (-w) % 8, 0, (-k) % 8))
+    else:
+        limbs = limbs.to(torch.int32)
+    return limbs.permute(1, 0, 2).reshape(limbs.shape[1], -1).contiguous()
+
+
+def limb_product(lhs: torch.Tensor, rhs: torch.Tensor, w: int) -> torch.Tensor:
+    """(m, K) small integers times the K rows of u64 whose limbs `rhs`
+    holds (`limb_matrix`), mod 2^64 -> (m, w) int64: one integer product of
+    the lhs against the 16 limbs, recombined with wrapping shifts. Exact
+    while |lhs| * 15 * K < 2^31 (int32 sums). On CUDA one torch._int_mm
+    (int8 x int8 -> int32; CUDA has no 64-bit matmul), the rows padded to
+    a multiple of 8 and at least 32; on the CPU an int32 matmul (an int8
+    matmul there would wrap in int8)."""
+    m, k = lhs.shape
+    if rhs.is_cuda:
+        lhs8 = torch.zeros((max(32, m + (-m) % 8), rhs.shape[0]), dtype=torch.int8, device=rhs.device)
+        lhs8[:m, :k] = lhs.to(torch.int8)
+        part = torch._int_mm(lhs8, rhs)[:m]
+    else:
+        part = lhs.to(torch.int32) @ rhs
+    part = part.reshape(m, 16, -1)[..., :w].to(torch.int64)
+    acc = part[:, 0]
+    for l in range(1, 16):
+        acc = acc + (part[:, l] << (4 * l))
+    return acc
 
 
 def gen_keyswitch_key(
@@ -150,28 +178,12 @@ def gen_keyswitch_key(
 def keyswitch(ct: torch.Tensor, ksk: KeyswitchKey) -> torch.Tensor:
     """(..., n_in+1) -> (..., n_out+1) under the output key:
     (0, body) - sum_{i,l} digit_{i,l} * ksk[i,l], with the contraction as
-    one integer product of the digits against the 16 key limbs
-    (|digit| * 15 * n_in * level < 2^31, so int32 sums are exact), then
-    recombined with wrapping shifts. On CUDA the product is
-    torch._int_mm (int8 x int8 -> int32); on the CPU an int32 matmul
-    (an int8 matmul there would wrap in int8)."""
+    one `limb_product` of the digits against the 16 key limbs
+    (|digit| * 15 * n_in * level < 2^31, so int32 sums are exact)."""
     batch = ct.shape[:-1]
     digits = signed_decompose(ct[..., :-1], ksk.gadget)  # (..., n_in, level)
     flat = digits.reshape(-1, digits.shape[-2] * digits.shape[-1])
-    m = flat.shape[0]
     w = ksk.n_out + 1
-    rhs = ksk.matmul_rhs()
-    if ct.is_cuda:
-        mp = max(32, m + (-m) % 8)
-        lhs = torch.zeros((mp, flat.shape[1]), dtype=torch.int8, device=ct.device)
-        lhs[:m] = flat.to(torch.int8)
-        part = torch._int_mm(lhs, rhs)[:m]
-    else:
-        part = flat.to(torch.int32) @ rhs
-    part = part.reshape(m, 16, -1)[..., :w].to(torch.int64)
-    acc = part[:, 0]
-    for l in range(1, 16):
-        acc = acc + (part[:, l] << (4 * l))
-    out = (-acc).reshape(*batch, w)
+    out = (-limb_product(flat, ksk.matmul_rhs(), w)).reshape(*batch, w)
     out[..., -1] += ct[..., -1]
     return out
