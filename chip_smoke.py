@@ -54,7 +54,19 @@ through the entry points a user calls, at full width:
    sealed to an ML-KEM key from generate_keypair, /verify; every value
    checked against numpy, K4 launched on /evaluate and K3 not; ms per
    request and K1-K4 launches per route, the ZK prove and verify seconds
-   (`api:` lines).
+   (`api:` lines);
+9. the ML stack (`ml_phase`): the full-FHE stroke classifier of
+   examples/fhe_digits_demo.py at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+   (conv2d_as_linear -> FheTlu -> FheLinear over 32 images: the TLU layer is
+   864 PBS in exactly one K3 launch; the scores equal clear_forward,
+   accuracy >= 0.9; ms per run and per layer, `ml_fhe:` line; K3 at the
+   layer's 864 ciphertexts against its plain version on 64 of them, past
+   index 512), and compile_torch_model of a 784 -> 128 -> 128 -> 10 MLP
+   with its matmul keys on the card at PARAMS_8B_2048,
+   forward(fhe="execute") on 32 rows (exactly 7 K1 and 4 K2 per Gemm,
+   K3/K4 none; every K1/K2 call of a forward against its plain version;
+   every Gemm within 256 accumulator LSBs of DISABLE; ms per forward,
+   `ml_qm:` lines).
 
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. Each
@@ -62,8 +74,9 @@ profiler window runs its call once under a warm-up step first and sums
 only the device events issued inside the recorded call. It
 prints the card, build time, per-kernel times beside their bounds,
 keygen seconds, PBS/s, transfers/s, gates/s, ms per matmul and Gmac/s,
-K3's and K4's times at 64, 128 and 512 ciphertexts (`ms_by_batch`), K1's
-and K2's at the keygen, loop, boolean and matmul shapes (`ms_by_shape`),
+ms per encrypted inference, K3's times at 64, 128, 512 and 864
+ciphertexts and K4's at 64, 128 and 512 (`ms_by_batch`), K1's and K2's at the keygen, loop, boolean
+and matmul shapes (`ms_by_shape`),
 ptxas's registers and spills, a `{"kernels": [...]}` line, and last a
 `{"ok": true, "device": {...}}` line. Any failure raises and exits
 non-zero; with no CUDA device it exits non-zero before printing a result.
@@ -84,6 +97,7 @@ ERC20_BATCH = 32
 ERC20_BITS = 64
 API_USER_HANDLES = 4  # balances decrypted through /user-decrypt's threshold protocol
 MM_R, MM_C, MM_O = 32, 2048, 1024  # enc(R x C) x clear(C x O), scripts/bench_matmul.py's shape
+ML_BATCH = 32  # images of the full-FHE classifier, rows of the compiled MLP's forward
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
 # integer instructions.
@@ -250,6 +264,55 @@ def chunked_vs_plain(plain, x, out, chunk: int, err_fn) -> tuple[int, float]:
         del got
     torch.cuda.synchronize()
     return err, ms
+
+
+def ntt_calls_vs_plain(run) -> dict:
+    """Run `run()` with K1's and K2's wrappers recording their calls, and
+    hold the kernel's output of each distinct call (kernel, input type,
+    shape) against its plain version on the same input, in chunks of rows:
+    {call: [largest error, calls]} (K1 mod p; K2 exactly)."""
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt_cuda
+
+    fwd, inv = ntt_cuda.forward, ntt_cuda.inverse
+    seen = {}
+
+    def mod_err(engine):
+        primes = torch.tensor(engine.primes, device="cuda").view(1, -1, 1)
+        return lambda a, b: int(((a.to(torch.int64) % primes) - (b.to(torch.int64) % primes)).abs().max())
+
+    def exact_err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    def record(key, x, out, plain, err_fn, row_dims):
+        if key not in seen:
+            rows = x.reshape(-1, *x.shape[-row_dims:])
+            seen[key] = [chunked_vs_plain(plain, rows, out.reshape(-1, *out.shape[-2:]), 8192, err_fn)[0], 0]
+        seen[key][1] += 1
+
+    def forward(engine, x, small):
+        out = fwd(engine, x, small)
+        plain = engine.forward_i32_plain if small else engine.forward_u64_plain
+        record(f"K1 {'int32' if small else 'u64'} {tuple(x.shape)}", x, out, plain, mod_err(engine), 1)
+        return out
+
+    def inverse(engine, f):
+        out = inv(engine, f)
+        record(f"K2 {tuple(f.shape)}", f, out, engine.inverse_plain, exact_err, 2)
+        return out
+
+    # the wrappers count on the module's names, so the recorders take the
+    # counts while they stand in, and hand them back after
+    forward.launches, inverse.launches = 0, 0
+    ntt_cuda.forward, ntt_cuda.inverse = forward, inverse
+    try:
+        run()
+    finally:
+        ntt_cuda.forward, ntt_cuda.inverse = fwd, inv
+        fwd.launches += forward.launches
+        inv.launches += inverse.launches
+    return seen
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -468,6 +531,201 @@ def api_phase(dev, read_counts) -> dict:
         out["user_handles"] = len(asked)
     finally:
         srv.stop()
+    return out
+
+
+def make_strokes(n_per_class: int, rng):
+    """5x5 images, pixel values in [0, 3]: a full-intensity stroke over 0/1
+    speckle noise. Classes: horizontal bar, vertical bar, diagonal (the
+    data of examples/fhe_digits_demo.py)."""
+    import numpy as np
+
+    X, y = [], []
+    for cls in range(3):
+        for _ in range(n_per_class):
+            img = rng.integers(0, 2, (5, 5))
+            pos = rng.integers(1, 4)
+            if cls == 0:
+                img[pos, :] = 3
+            elif cls == 1:
+                img[:, pos] = 3
+            else:
+                for i in range(5):
+                    img[i, i] = 3
+            X.append(img)
+            y.append(cls)
+    return np.array(X), np.array(y)
+
+
+def ml_phase(dev, reset_counts, read_counts) -> dict:
+    """The ML stack's two encrypted paths, the launch counts reset before
+    each and read after it:
+
+    ml_fhe: the full-FHE stroke classifier of examples/fhe_digits_demo.py
+    (conv2d_as_linear of three 3x3 kernels over 5x5 images, FheTlu(fires),
+    a 27 -> 3 FheLinear head) at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128:
+    keygen, encrypt ML_BATCH images, run, decrypt; the scores equal
+    clear_forward and the accuracy is >= 0.9; the TLU layer is
+    ML_BATCH x 27 PBS in one K3 launch, and the run launches no K1, K2, K4;
+    K3 at that shape equals its plain version on 64 of the ciphertexts.
+
+    ml_qm: compile_torch_model of an MNIST-width MLP (784 -> 128 -> 128 ->
+    10, ReLU, n_bits 6, torch init from SEED, calibrated on 256 seeded
+    inputs), compile() with the matmul keys on the card at PARAMS_8B_2048,
+    forward(fhe="execute") on ML_BATCH inputs after a warm-up forward: 7 K1
+    and 4 K2 launches per Gemm, no K3 or K4 (counted over the forward alone),
+    each K1/K2 call of a forward equal to its plain version, every
+    QuantizedGemm's EXECUTE
+    output within 256 accumulator LSBs of its DISABLE output on the same
+    layer input."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import _u64
+    from tfhe_tpu_torch import params as tp
+    from tfhe_tpu_torch.core.lwe import keyswitch, lwe_add_plain, sample_extract
+    from tfhe_tpu_torch.ml import FheMode, QuantizedGemm, compile_torch_model
+    from tfhe_tpu_torch.ml.fhe_pipeline import FheLinear, FheSequential, FheTlu, conv2d_as_linear
+    from tfhe_tpu_torch.models.shortint import engine_for
+    from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
+    from tfhe_tpu_torch.torus import mod_switch, negacyclic_monomial_rotate
+
+    out = {}
+    # -- ml_fhe -----------------------------------------------------------------
+    P = tp.PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    kern = np.zeros((3, 1, 3, 3), dtype=np.int64)
+    kern[0, 0, 1, 0] = kern[0, 0, 1, 2] = 1  # horizontal pair
+    kern[1, 0, 0, 1] = kern[1, 0, 2, 1] = 1  # vertical pair
+    kern[2, 0, 0, 0] = kern[2, 0, 2, 2] = 1  # diagonal pair
+    head = FheLinear(np.kron(np.eye(3, dtype=np.int64), np.ones((9, 1), dtype=np.int64)))
+    layers = [conv2d_as_linear(kern, in_hw=(5, 5)), FheTlu(lambda v: 1 if v >= 5 else 0), head]
+    rng = np.random.default_rng(SEED)
+    X, y = make_strokes(-(-ML_BATCH // 3), rng)
+    keep = rng.permutation(len(y))[:ML_BATCH]
+    X, y = X[keep].reshape(ML_BATCH, -1), y[keep]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    net = FheSequential(layers, P, seed=SEED + 20, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    net.compile(input_hi=3)
+    enc = net.encrypt(X, seed=SEED + 21)
+    before = read_counts()
+    res = net.run(enc)
+    run_counts = {k: v - before[k] for k, v in read_counts().items()}
+    scores = net.decrypt(res)
+    out["ml_fhe_counts"] = read_counts()
+    clear = net.clear_forward(X)
+    n_pbs = ML_BATCH * head.w.shape[0]
+    acc = float((np.argmax(scores, axis=1) == y).mean())
+    check(scores.shape == (ML_BATCH, 3) and np.array_equal(scores, clear),
+          "ml_fhe: the decrypted scores equal clear_forward")
+    check(acc >= 0.9, f"ml_fhe: accuracy {acc} >= 0.9")
+    check(run_counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0},
+          f"ml_fhe: one K3 launch for the {n_pbs} PBS of the TLU layer, no K1/K2/K4 ({run_counts})")
+
+    def layer_ms():
+        """ms of each layer of one run (the card synchronised after each)."""
+        ms = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in net.run_layers(enc):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            ms.append((now - t) * 1e3)
+            t = now
+        return ms
+
+    layer_ms()  # warm-up
+    ms = layer_ms()
+    print(f"ml_fhe: {P.name}, conv2d_as_linear 25 -> 27, FheTlu, FheLinear 27 -> 3, batch {ML_BATCH}: "
+          f"keygen_s {keygen_s:.3f}; {sum(ms):.3f} ms per run (FheLinear conv {ms[0]:.3f} ms, TLU layer "
+          f"{ms[1]:.3f} ms = {n_pbs} PBS in one K3 launch, {n_pbs / ms[1] * 1e3:.1f} PBS/s, FheLinear head "
+          f"{ms[2]:.3f} ms); scores equal clear_forward, accuracy {acc:.3f}; launches per run {run_counts}",
+          flush=True)
+    out["ml_fhe"] = dict(keygen_s=keygen_s, run_ms=sum(ms), layer_ms=ms, pbs=n_pbs, accuracy=acc)
+
+    # K3 at the TLU layer's shape, outside the counting window: the layer's
+    # accumulators and exponents rebuilt from the conv layer's output as
+    # apply_lut builds them, one launch over all n_pbs, whose extracted
+    # output must be the layer's; the plain steps on 64 of them, the first
+    # 16, 32 across index 512 and the last 16
+    tlu, n = layers[1], P.polynomial_size
+    (_, conv_ct), (_, tlu_ct) = list(net.run_layers(enc))[:2]
+    if tlu.offset:
+        conv_ct = lwe_add_plain(conv_ct, _u64.const(tlu.offset * P.delta))
+    ms_ = mod_switch(keyswitch(conv_ct.reshape(n_pbs, -1), net.sk.ksk), int(math.log2(2 * n)))
+    acc0 = negacyclic_monomial_rotate(net._luts[0], (2 * n - ms_[..., -1])[..., None]).contiguous()
+    e_all = ms_[..., :-1].t().to(torch.int32).contiguous()
+    bsk = net.sk.bsk
+    key = (bsk.bsk_ntt, bsk.rot_table, engine_for(P, dev), bsk.gadget.base_log, bsk.shift)
+    k3_out = brc.cmux_steps(acc0, e_all, *key)
+    check(torch.equal(sample_extract(k3_out, 0), tlu_ct.reshape(n_pbs, -1)),
+          f"ml_fhe: K3 on the rebuilt {n_pbs} accumulators gives the TLU layer's ciphertexts")
+    pick = torch.cat([torch.arange(16), torch.arange(496, 528), torch.arange(n_pbs - 16, n_pbs)]).to(dev)
+    k3_plain = brc.cmux_steps_plain(acc0[pick].contiguous(), e_all[:, pick].contiguous(), *key)
+    k3_err = int((k3_out[pick] - k3_plain).abs().max())
+    check(k3_err == 0, f"ml_fhe: K3 at {n_pbs} ct vs plain on 64 of them, past index 512 (err {k3_err})")
+    k3_ms = cuda_ms(lambda: brc.cmux_steps(acc0, e_all, *key), 3)
+    print(f"ml_fhe: K3 at the TLU layer's {n_pbs} ct x {P.lwe_dimension} steps: {k3_ms:.4f} ms; extracted output "
+          f"equals the layer's; vs plain on ct 0-15, 496-527, {n_pbs - 16}-{n_pbs - 1}: err {k3_err}", flush=True)
+    out["k3"] = dict(err=k3_err, ms=k3_ms, batch=n_pbs)
+    del net, enc, res, acc0, e_all, k3_out, key
+
+    # -- ml_qm ------------------------------------------------------------------
+    nn = torch.nn
+    torch.manual_seed(SEED)
+    model = nn.Sequential(nn.Linear(784, 128), nn.ReLU(), nn.Linear(128, 128), nn.ReLU(), nn.Linear(128, 10))
+    host = np.random.default_rng(SEED + 22)
+    cal = host.random((256, 784))
+    x = host.random((ML_BATCH, 784))
+    qm = compile_torch_model(model, cal, n_bits=6)
+    reset_counts()
+    t0 = time.perf_counter()
+    qm.compile(seed=SEED + 23, device=dev)
+    torch.cuda.synchronize()
+    qm_keygen_s = time.perf_counter() - t0
+    # a warm-up forward first: the first matmul at N = 2048 in a process
+    # also builds the engine's body-extraction row (one more K2, once)
+    qm.forward(x, fhe="execute")
+    before = read_counts()
+    y_exec = qm.forward(x, fhe="execute")
+    fwd_counts = {k: v - before[k] for k, v in read_counts().items()}
+    out["ml_qm_counts"] = read_counts()
+    n_gemm = sum(isinstance(op, QuantizedGemm) for op in qm.ops)
+    check(fwd_counts == {"K1": 7 * n_gemm, "K2": 4 * n_gemm, "K3": 0, "K4": 0},
+          f"ml_qm: the EXECUTE forward launches 7 K1 and 4 K2 per Gemm, no K3/K4 ({fwd_counts})")
+    # every K1/K2 call of a second forward, outside the counting window,
+    # against its plain version on the same input
+    ntt_calls = ntt_calls_vs_plain(lambda: qm.forward(x, fhe="execute"))
+    calls = {k: sum(c for name, (_, c) in ntt_calls.items() if name.startswith(k)) for k in ("K1", "K2")}
+    check(calls == {"K1": fwd_counts["K1"], "K2": fwd_counts["K2"]} and all(e == 0 for e, _ in ntt_calls.values()),
+          f"ml_qm: every K1/K2 call of a forward equal to its plain version ({ntt_calls})")
+    print("ml_qm: K1/K2 vs plain at every call of a forward (error, calls): "
+          + "; ".join(f"{name} {e} x{c}" for name, (e, c) in ntt_calls.items()), flush=True)
+    out["ntt_err"] = {k: max(e for name, (e, _) in ntt_calls.items() if name.startswith(k)) for k in ("K1", "K2")}
+    y_clear = qm.forward(x, fhe="disable")
+    check(np.isfinite(y_exec).all() and y_exec.shape == (ML_BATCH, 10), "ml_qm: finite (batch, 10) output")
+    agree = float((np.argmax(y_exec, axis=1) == np.argmax(y_clear, axis=1)).mean())
+    qm_ms = host_ms(lambda: qm.forward(x, fhe="execute"))
+    # each Gemm against its own DISABLE output on the same (EXECUTE-chain) input
+    lsbs = []
+    h = qm.dequantize_input(qm.quantize_input(x))
+    for op in qm.ops:
+        nxt = op.forward(h, FheMode.EXECUTE)
+        if isinstance(op, QuantizedGemm):
+            ref = op.forward(h, FheMode.DISABLE)
+            lsb = float(op._exec.last_input_quantizer.scale) * float(op._exec.w_quant.scale)
+            lsbs.append(float(np.abs(nxt - ref).max() / lsb))
+        h = nxt
+    check(max(lsbs) <= 256, f"ml_qm: every Gemm's EXECUTE within 256 accumulator LSBs of DISABLE ({lsbs})")
+    print(f"ml_qm: compile_torch_model 784 -> 128 -> 128 -> 10 (ReLU, n_bits 6), {n_gemm} Gemms at "
+          f"{qm.ops[0]._exec.params.name}, batch {ML_BATCH}: keygen_s {qm_keygen_s:.3f}; {qm_ms:.3f} ms per "
+          f"EXECUTE forward (warm); argmax agreement with DISABLE {agree:.3f}; max |EXECUTE - DISABLE| per Gemm "
+          + ", ".join(f"{v:.3f}" for v in lsbs) + f" accumulator LSBs (budget 256); launches per forward "
+          f"{fwd_counts}", flush=True)
+    out["ml_qm"] = dict(keygen_s=qm_keygen_s, forward_ms=qm_ms, agreement=agree, lsbs=lsbs, launches=fwd_counts)
     return out
 
 
@@ -1114,10 +1372,18 @@ def main() -> int:
         print(f"api: {route} {r['ms'] / r['requests']:.3f} ms per request over {r['requests']} "
               f"request{'s' if r['requests'] > 1 else ''}; launches {r['launches']}", flush=True)
 
+    # -- path 9: the ML stack, full-FHE FheSequential and the compiled module --
+    ml = ml_phase(dev, reset_counts, read_counts)
+    paths["ml_fhe"], paths["ml_qm"] = ml["ml_fhe_counts"], ml["ml_qm_counts"]
+    kern["K3"]["max_abs_err"] = max(kern["K3"]["max_abs_err"], ml["k3"]["err"])
+    b, o = k3_bound(ml["k3"]["batch"])
+    kern["K3"]["ms_by_batch"][str(ml["k3"]["batch"])] = dict(ms=ml["k3"]["ms"], bound_ms=b, bound_by=o)
+
     kern["K1"] = dict(
         name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
                                                                    k1_bool_err, k1_pks_err, k1_pke_err,
+                                                                   ml["ntt_err"]["K1"],
                                                                    *(v[0] for v in edge.values()),
                                                                    *(v[1] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop, "boolean": k1_bool,
@@ -1127,7 +1393,7 @@ def main() -> int:
     kern["K2"] = dict(
         name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:518",
-        max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, k2_pke_err,
+        max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, k2_pke_err, ml["ntt_err"]["K2"],
                         *(v[2] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop, "boolean": k2_bool,
                                       "matmul_mask": k2_mask}, **{

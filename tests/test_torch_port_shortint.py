@@ -196,8 +196,12 @@ def test_package_imports_no_jax():
         "tfhe_tpu_torch.api.shamir, tfhe_tpu_torch.api.kms, tfhe_tpu_torch.api.public_key, "
         "tfhe_tpu_torch.api.threshold, tfhe_tpu_torch.api.compact_pke, tfhe_tpu_torch.api.zkpok, "
         "tfhe_tpu_torch.api.costs, tfhe_tpu_torch.api.instance, tfhe_tpu_torch.api.serve, "
-        "tfhe_tpu_torch.api.client; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu')); "
+        "tfhe_tpu_torch.api.client, tfhe_tpu_torch.ml, tfhe_tpu_torch.ml.serialization, "
+        "tfhe_tpu_torch.ml.quantized_module, tfhe_tpu_torch.ml.quantized_ops, tfhe_tpu_torch.ml.onnx_frontend, "
+        "tfhe_tpu_torch.ml.torch_export, tfhe_tpu_torch.ml.torch_models, tfhe_tpu_torch.ml.fhe_pipeline, "
+        "tfhe_tpu_torch.ml.qat_fhe, tfhe_tpu_torch.ml.base, tfhe_tpu_torch.ml.sklearn, tfhe_tpu_torch.ml.zoo, "
+        "tfhe_tpu_torch.ml.tree; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

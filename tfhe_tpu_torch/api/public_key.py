@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from tfhe_tpu_torch.core.lwe import _u64_to_nibbles, encrypt_lwe, limb_matrix, limb_product
+from tfhe_tpu_torch.core.lwe import encrypt_lwe, limb_product, limb_rhs
 from tfhe_tpu_torch.models.shortint import ClientKey
 from tfhe_tpu_torch.params import ShortintParams
 from tfhe_tpu_torch.rng import FheRng
@@ -38,7 +38,7 @@ def binary_combination(r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     wrapping shifts, as one `core.lwe.limb_product` (torch._int_mm on the
     card, where there is no 64-bit matmul)."""
     m, w = rows.shape
-    prod = limb_product(r.reshape(-1, m), limb_matrix(_u64_to_nibbles(rows)), w)
+    prod = limb_product(r.reshape(-1, m), limb_rhs(rows), w, 1)
     return prod.reshape(*r.shape[:-1], w)
 
 

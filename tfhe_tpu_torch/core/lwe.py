@@ -136,15 +136,33 @@ def limb_matrix(limbs: torch.Tensor) -> torch.Tensor:
     return limbs.permute(1, 0, 2).reshape(limbs.shape[1], -1).contiguous()
 
 
-def limb_product(lhs: torch.Tensor, rhs: torch.Tensor, w: int) -> torch.Tensor:
+def limb_rhs(rows: torch.Tensor) -> torch.Tensor:
+    """(K, W) rows of u64 -> their `limb_product` right-hand side."""
+    return limb_matrix(_u64_to_nibbles(rows))
+
+
+def check_limb_lhs(max_abs: int, k: int, cuda: bool) -> None:
+    """Raise unless a `limb_product` left operand of magnitude <= max_abs
+    over K = k rows is exact: |lhs| * 15 * K < 2^31 (int32 sums) and, on
+    CUDA, |lhs| <= 127 (torch._int_mm takes int8 operands). There is no
+    fallback: an operand out of range is an error, on either device."""
+    if max_abs * 15 * k >= 2**31:
+        raise ValueError(f"limb product: |lhs| {max_abs} x 15 x K {k} overflows the int32 sums")
+    if cuda and max_abs > 127:
+        raise ValueError(f"limb product on CUDA takes int8 left operands; |lhs| {max_abs} > 127")
+
+
+def limb_product(lhs: torch.Tensor, rhs: torch.Tensor, w: int, max_abs: int) -> torch.Tensor:
     """(m, K) small integers times the K rows of u64 whose limbs `rhs`
-    holds (`limb_matrix`), mod 2^64 -> (m, w) int64: one integer product of
-    the lhs against the 16 limbs, recombined with wrapping shifts. Exact
-    while |lhs| * 15 * K < 2^31 (int32 sums). On CUDA one torch._int_mm
-    (int8 x int8 -> int32; CUDA has no 64-bit matmul), the rows padded to
-    a multiple of 8 and at least 32; on the CPU an int32 matmul (an int8
-    matmul there would wrap in int8)."""
+    holds (`limb_rhs`, `limb_matrix`), mod 2^64 -> (m, w) int64: one
+    integer product of the lhs against the 16 limbs, recombined with
+    wrapping shifts. `max_abs` bounds |lhs| as the caller knows it on the
+    host; `check_limb_lhs` raises first unless it makes the product exact.
+    On CUDA one torch._int_mm (int8 x int8 -> int32; CUDA has no 64-bit
+    matmul), the rows padded to a multiple of 8 and at least 32; on the CPU
+    an int32 matmul (an int8 matmul there would wrap in int8)."""
     m, k = lhs.shape
+    check_limb_lhs(max_abs, k, rhs.is_cuda)
     if rhs.is_cuda:
         lhs8 = torch.zeros((max(32, m + (-m) % 8), rhs.shape[0]), dtype=torch.int8, device=rhs.device)
         lhs8[:m, :k] = lhs.to(torch.int8)
@@ -178,12 +196,13 @@ def gen_keyswitch_key(
 def keyswitch(ct: torch.Tensor, ksk: KeyswitchKey) -> torch.Tensor:
     """(..., n_in+1) -> (..., n_out+1) under the output key:
     (0, body) - sum_{i,l} digit_{i,l} * ksk[i,l], with the contraction as
-    one `limb_product` of the digits against the 16 key limbs
-    (|digit| * 15 * n_in * level < 2^31, so int32 sums are exact)."""
+    one `limb_product` of the digits (|digit| <= 2^(base_log - 1)) against
+    the 16 key limbs."""
     batch = ct.shape[:-1]
     digits = signed_decompose(ct[..., :-1], ksk.gadget)  # (..., n_in, level)
     flat = digits.reshape(-1, digits.shape[-2] * digits.shape[-1])
     w = ksk.n_out + 1
-    out = (-limb_product(flat, ksk.matmul_rhs(), w)).reshape(*batch, w)
+    max_digit = 1 << (ksk.gadget.base_log - 1)
+    out = (-limb_product(flat, ksk.matmul_rhs(), w, max_digit)).reshape(*batch, w)
     out[..., -1] += ct[..., -1]
     return out
