@@ -66,7 +66,23 @@ through the entry points a user calls, at full width:
    forward(fhe="execute") on 32 rows (exactly 7 K1 and 4 K2 per Gemm,
    K3/K4 none; every K1/K2 call of a forward against its plain version;
    every Gemm within 256 accumulator LSBs of DISABLE; ms per forward,
-   `ml_qm:` lines).
+   `ml_qm:` lines);
+10. the ML deployment side (`ml_deploy_phase`): the same MLP's layers 0 and
+   2 served at PARAMS_8B_2048 by a HybridFHEModelServer behind
+   HybridHTTPServer on 127.0.0.1:0 to a RemoteHybridModel over
+   HTTPTransport, batch 32 (rel err < 0.25 against the float forward, each
+   remote layer within 256 accumulator LSBs of the clear product, exactly
+   7 K1 and 4 K2 per remote layer per forward and no K3/K4, every K1/K2
+   call of a remote forward against its plain version, one /compute under
+   device_trace naming k1_forward, an in-process HybridFHEModel within 256
+   LSBs per layer, counted as a path of its own; ms per forward and per /compute, the /add_key blob's
+   bytes and ms, /get_client, the evaluation key's deserialization,
+   `hybrid:` lines), LoRA training of the same MLP with FHE base layers (2
+   EXECUTE steps: finite losses, lora_b moved, 7 K1 and 4 K2 per base
+   layer per step, `lora:` line), and an encrypted left merge of 32 x 32
+   rows at the GROUP_3 key (every value equal to numpy's merge, K4 and not
+   K3, save -> load, K4's output at the merge's first call of each batch
+   size against its plain version on the same inputs, `pandas:` line).
 
 The launch counts are set to 0 just before each path and read just
 after it; the kernel-vs-plain comparisons run outside those windows. Each
@@ -98,6 +114,7 @@ ERC20_BITS = 64
 API_USER_HANDLES = 4  # balances decrypted through /user-decrypt's threshold protocol
 MM_R, MM_C, MM_O = 32, 2048, 1024  # enc(R x C) x clear(C x O), scripts/bench_matmul.py's shape
 ML_BATCH = 32  # images of the full-FHE classifier, rows of the compiled MLP's forward
+MERGE_ROWS = 32  # rows of each side of the encrypted dataframe merge
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
 # integer instructions.
@@ -534,6 +551,16 @@ def api_phase(dev, read_counts) -> dict:
     return out
 
 
+def mnist_mlp(seed: int = SEED):
+    """The MNIST-width MLP of the ML phases: 784 -> 128 -> 128 -> 10, ReLU,
+    torch init from `seed`."""
+    import torch
+
+    nn = torch.nn
+    torch.manual_seed(seed)
+    return nn.Sequential(nn.Linear(784, 128), nn.ReLU(), nn.Linear(128, 128), nn.ReLU(), nn.Linear(128, 10))
+
+
 def make_strokes(n_per_class: int, rng):
     """5x5 images, pixel values in [0, 3]: a full-intensity stroke over 0/1
     speckle noise. Classes: horizontal bar, vertical bar, diagonal (the
@@ -674,9 +701,7 @@ def ml_phase(dev, reset_counts, read_counts) -> dict:
     del net, enc, res, acc0, e_all, k3_out, key
 
     # -- ml_qm ------------------------------------------------------------------
-    nn = torch.nn
-    torch.manual_seed(SEED)
-    model = nn.Sequential(nn.Linear(784, 128), nn.ReLU(), nn.Linear(128, 128), nn.ReLU(), nn.Linear(128, 10))
+    model = mnist_mlp()
     host = np.random.default_rng(SEED + 22)
     cal = host.random((256, 784))
     x = host.random((ML_BATCH, 784))
@@ -726,6 +751,343 @@ def ml_phase(dev, reset_counts, read_counts) -> dict:
           + ", ".join(f"{v:.3f}" for v in lsbs) + f" accumulator LSBs (budget 256); launches per forward "
           f"{fwd_counts}", flush=True)
     out["ml_qm"] = dict(keygen_s=qm_keygen_s, forward_ms=qm_ms, agreement=agree, lsbs=lsbs, launches=fwd_counts)
+    return out
+
+
+class Frame:
+    """The members of a pandas DataFrame that DataFrameClient.encrypt_from_pandas
+    reads (`columns`, `len()`, `frame[name]`): the card machine has no pandas."""
+
+    def __init__(self, data: dict):
+        self.data = data
+        self.columns = list(data)
+
+    def __len__(self):
+        return len(next(iter(self.data.values())))
+
+    def __getitem__(self, name):
+        return self.data[name]
+
+
+def record_forward(obj, store: dict, key):
+    """Wrap obj.forward so that each call leaves (input as float64, output) in
+    store[key]."""
+    import numpy as np
+
+    fwd = obj.forward
+
+    def run(a, *args, **kw):
+        res = fwd(a, *args, **kw)
+        store[key] = (np.asarray(a, np.float64).reshape(-1, np.shape(a)[-1]), res)
+        return res
+
+    obj.forward = run
+
+
+def lsbs_off(x, y, w_q, w_quant, n_bits_in: int, bias) -> float:
+    """Largest |y - the clear quantized product on x| in accumulator LSBs,
+    the input quantized as GlweLinearLayerExecutor and FHEModelClient do."""
+    import numpy as np
+
+    from tfhe_tpu_torch.ml.quantization import UniformQuantizer
+
+    xq = UniformQuantizer(n_bits_in, is_signed=False).fit(x)
+    acc = xq.quant(x).astype(np.float64) @ w_q.astype(np.float64)
+    w_scale = np.asarray(w_quant.scale, np.float64)
+    clear = (acc - float(xq.zero_point) * w_q.sum(axis=0)) * float(xq.scale) * w_scale
+    if bias is not None:
+        clear = clear + np.asarray(bias, np.float64)
+    return float(np.abs(np.asarray(y, np.float64).reshape(clear.shape) - clear).max() / (float(xq.scale) * float(w_scale)))
+
+
+def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dict:
+    """The ML deployment side, the launch counts reset before each path and
+    read after it, timed with the port's Timings (synchronised on the card):
+
+    hybrid: serve_hybrid_model of the MNIST MLP's layers 0 and 2 at
+    `mm_params` into a HybridFHEModelServer on the card, served by
+    HybridHTTPServer on 127.0.0.1:0; a RemoteHybridModel client over
+    HTTPTransport (layer 4 copied from the provider) runs a warm-up forward,
+    then one on ML_BATCH rows: finite (ML_BATCH, 10) on the input's device
+    and dtype, within rel 0.25 of the provider's float forward, each remote
+    layer within 256 accumulator LSBs of the clear product on the same
+    quantized input, exactly 7 K1 and 4 K2 per remote layer and no K3/K4;
+    every K1/K2 call of a remote forward equal to its plain version; one
+    /compute under device_trace, whose Chrome trace names k1_forward. The
+    hybrid path's counts are read right after the counted forward, before
+    those replays. Then an in-process HybridFHEModel with keys on the card,
+    a path of its own (counts reset before its compile): each layer's
+    EXECUTE within 256 LSBs of its DISABLE, K1 and K2 launched, no K3/K4.
+
+    lora: LoraTraining of the same MLP (layers 0 and 2, rank 4) compiled on
+    the card, LoraTrainer.train on 2 batches of ML_BATCH rows in EXECUTE:
+    finite losses, lora_b moved off zero in both layers, 7 K1 and 4 K2 per
+    base layer per step, each base layer's EXECUTE within 256 LSBs of DISABLE.
+
+    pandas: a DataFrameClient at `df_params` (value_bits 8) on the card, a
+    left merge of MERGE_ROWS x MERGE_ROWS rows with unique keys, half of the
+    left keys matching: every decrypted value equal to numpy's left merge (0
+    where no key matches), K4 launched and K3 not, save -> load round-trips;
+    K4's output at the merge's first call of each batch size, recorded during
+    the merge, against its plain version on the same inputs."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ml.hybrid import HybridFHEModel, RemoteHybridModel, serve_hybrid_model
+    from tfhe_tpu_torch.ml.hybrid_server import HTTPTransport, HybridFHEModelServer, HybridHTTPServer
+    from tfhe_tpu_torch.ml.lora import LoraTrainer, LoraTraining
+    from tfhe_tpu_torch.ml.pandas import DataFrameClient, EncryptedDataFrame
+    from tfhe_tpu_torch.models import integer as ri
+    from tfhe_tpu_torch.ops import multibit_cuda as mbc
+    from tfhe_tpu_torch.utils import serialization
+    from tfhe_tpu_torch.utils.profiling import Timings, device_trace
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def delta(before):
+        return {k: v - before[k] for k, v in read_counts().items()}
+
+    class TimedTransport(HTTPTransport):
+        """HTTPTransport timing each route into `self.tm` and keeping the
+        evaluation-key blob sizes."""
+
+        def __init__(self, base_url):
+            super().__init__(base_url)
+            self.tm, self.key_bytes = Timings(), []
+
+        def get_client(self, model_name, module_name):
+            with self.tm.section("/get_client"):
+                return super().get_client(model_name, module_name)
+
+        def add_key(self, key, model_name, module_name):
+            self.key_bytes.append(len(key))
+            with self.tm.section("/add_key"):
+                return super().add_key(key, model_name, module_name)
+
+        def compute(self, model_input, uid, model_name, module_name):
+            with self.tm.section(f"/compute {module_name}"):
+                return super().compute(model_input, uid, model_name, module_name)
+
+    out, paths, tm = {}, {}, Timings()
+    names = ["0", "2"]  # the remote (private) layers; layer 4 stays local
+    net = mnist_mlp()
+    host = np.random.default_rng(SEED + 30)
+    x = torch.from_numpy(host.random((ML_BATCH, 784)).astype(np.float32))
+    want = net(x).detach().numpy()
+    xd = x.to(dev)
+    tmp_dirs = []
+
+    # -- hybrid -----------------------------------------------------------------
+    reset_counts()
+    core = HybridFHEModelServer(device=dev)
+    serve_hybrid_model(net, names, "mnist", core, params=mm_params)
+    httpd = HybridHTTPServer(core).start()
+    try:
+        transport = TimedTransport(f"http://127.0.0.1:{httpd.port}")
+        # the client's own net: the provider ships layer 4; layers 0 and 2
+        # are swapped out, their weights never leave the server
+        client_net = mnist_mlp(SEED + 35)
+        client_net[4].load_state_dict(net[4].state_dict())
+        with tm.section("client setup", sync=sync):
+            remote = RemoteHybridModel(client_net.to(dev), names, "mnist", transport, key_seed=SEED + 31, device=dev)
+        setup = transport.tm.report()
+        remote(xd)  # warm-up
+        seen = {}
+        for nm in names:
+            record_forward(remote.remotes[nm], seen, nm)
+        transport.tm = Timings()
+        before = read_counts()
+        with tm.section("hybrid forward", sync=sync):
+            y = remote(xd)
+        fwd_counts = delta(before)
+        paths["hybrid"] = read_counts()  # the checks and replays below run outside the window
+        routes = transport.tm.report()
+        got = y.detach().cpu().numpy()
+        check(y.device == xd.device and y.dtype == xd.dtype and got.shape == (ML_BATCH, 10) and np.isfinite(got).all(),
+              "hybrid: a finite (batch, 10) output on the input's device and dtype")
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        check(rel < 0.25, f"hybrid: the remote forward within rel 0.25 of the provider's float forward ({rel:.4f})")
+        lsbs = []
+        for nm in names:
+            cl = remote.remotes[nm].client
+            lsbs.append(lsbs_off(*seen[nm], cl.w_q, cl.w_quant, cl.meta["n_bits_in"], cl.bias))
+        check(max(lsbs) <= 256, f"hybrid: each remote layer within 256 accumulator LSBs of the clear product ({lsbs})")
+        check(fwd_counts == {"K1": 7 * len(names), "K2": 4 * len(names), "K3": 0, "K4": 0},
+              f"hybrid: 7 K1 and 4 K2 per remote layer per forward, no K3/K4 ({fwd_counts})")
+        # every K1/K2 call of another remote forward against its plain version
+        ntt_calls = ntt_calls_vs_plain(lambda: remote(xd))
+        calls = {k: sum(c for name, (_, c) in ntt_calls.items() if name.startswith(k)) for k in ("K1", "K2")}
+        check(calls == {"K1": fwd_counts["K1"], "K2": fwd_counts["K2"]} and all(e == 0 for e, _ in ntt_calls.values()),
+              f"hybrid: every K1/K2 call of a remote forward equal to its plain version ({ntt_calls})")
+        out["ntt_err"] = {k: max(e for name, (e, _) in ntt_calls.items() if name.startswith(k)) for k in ("K1", "K2")}
+        # the server deserializes the evaluation key on every run
+        evk = core.keys[remote.remotes["0"].uid]
+        for _ in range(3):
+            with tm.section("evk deserialize", sync=sync):
+                serialization.deserialize(evk, device=dev)
+        # one /compute under the device trace
+        r0 = remote.remotes["0"]
+        blob, _ = r0.client.quantize_encrypt_serialize(seen["0"][0])
+        trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+        tmp_dirs.append(trace_dir)
+        with device_trace(trace_dir) as trace_path:
+            transport.compute(blob, r0.uid, "mnist", "0")
+        with open(trace_path) as f:
+            trace = f.read()
+        check("k1_forward" in trace, "hybrid: the device trace of one /compute names the K1 kernel")
+        tmp_dirs += [e["path"] for e in core.modules["mnist"].values()] + [r._dir for r in remote.remotes.values()]
+    finally:
+        httpd.stop()
+    rep = tm.report()
+    out["hybrid"] = dict(forward_ms=rep["hybrid forward"]["mean_ms"], routes=routes, setup=setup,
+                         key_bytes=transport.key_bytes, evk_deserialize_ms=rep["evk deserialize"]["mean_ms"],
+                         rel=rel, lsbs=lsbs, launches=fwd_counts, trace_bytes=len(trace))
+    print(f"hybrid: serve_hybrid_model 784 -> 128 -> 128 -> 10, layers {', '.join(names)} remote at {mm_params.name}, "
+          f"RemoteHybridModel over HTTPTransport, batch {ML_BATCH}: {rep['hybrid forward']['mean_ms']:.3f} ms per "
+          "forward (" + ", ".join(f"{k} {v['mean_ms']:.3f} ms" for k, v in routes.items()) + f"); client setup "
+          f"{rep['client setup']['mean_ms']:.3f} ms (/get_client {setup['/get_client']['mean_ms']:.3f} ms, /add_key "
+          f"{setup['/add_key']['mean_ms']:.3f} ms for {transport.key_bytes[0]} key bytes, x{setup['/add_key']['count']}); "
+          f"evaluation key deserialize {rep['evk deserialize']['mean_ms']:.3f} ms per run; rel err vs float "
+          f"{rel:.4f} (budget 0.25); max |remote - clear| per layer " + ", ".join(f"{v:.3f}" for v in lsbs)
+          + f" accumulator LSBs (budget 256); launches per forward {fwd_counts}", flush=True)
+    print("hybrid: K1/K2 vs plain at every call of a remote forward (error, calls): "
+          + "; ".join(f"{name} {e} x{c}" for name, (e, c) in ntt_calls.items()), flush=True)
+    # in process: HybridFHEModel on the same net, keys on the card, its own path
+    reset_counts()
+    hyb = HybridFHEModel(copy.deepcopy(net), names, params=mm_params).compile(seed=SEED + 32, device=dev)
+    hyb.model.to(dev)  # the local layer 4
+    hseen = {}
+    for nm, layer in hyb._fhe_layers.items():
+        record_forward(layer.executor, hseen, nm)
+    y_hyb = hyb(xd, fhe="execute")
+    paths["hybrid_in_process"] = read_counts()
+    check(y_hyb.device == xd.device and bool(torch.isfinite(y_hyb).all()), "hybrid: in-process EXECUTE output finite")
+    hyb_lsbs = []
+    for nm, layer in hyb._fhe_layers.items():
+        ex = layer.executor
+        hyb_lsbs.append(lsbs_off(hseen[nm][0], hseen[nm][1], ex.w_q, ex.w_quant, ex.n_bits_in, ex.bias))
+    check(max(hyb_lsbs) <= 256, f"hybrid: in-process EXECUTE within 256 LSBs of DISABLE per layer ({hyb_lsbs})")
+    hyb_counts = paths["hybrid_in_process"]
+    check(hyb_counts["K1"] > 0 and hyb_counts["K2"] > 0 and hyb_counts["K3"] == 0 and hyb_counts["K4"] == 0,
+          f"hybrid: the in-process compile and EXECUTE launch K1 and K2, no K3/K4 ({hyb_counts})")
+    out["hybrid"]["hyb_lsbs"] = hyb_lsbs
+    print(f"hybrid: in-process HybridFHEModel EXECUTE vs DISABLE per layer " + ", ".join(f"{v:.3f}" for v in hyb_lsbs)
+          + f" accumulator LSBs (budget 256); launches (compile and one forward) {hyb_counts}; device_trace of one "
+          f"/compute {len(trace)} bytes, names k1_forward", flush=True)
+    del remote, core, hyb, evk
+
+    # -- lora -------------------------------------------------------------------
+    reset_counts()
+    lt = LoraTraining(copy.deepcopy(net), rank=4, target_modules=names, params=mm_params)
+    lt.model.to(dev)
+    lt.compile(seed=SEED + 33, device=dev)
+    trainer = LoraTrainer(lt)
+    g = np.random.default_rng(SEED + 34)
+    data = [(torch.from_numpy(g.random((ML_BATCH, 784)).astype(np.float32)).to(dev),
+             torch.from_numpy(g.random((ML_BATCH, 10)).astype(np.float32)).to(dev)) for _ in range(2)]
+    lseen = {}
+    for nm, layer in lt._lora_layers.items():
+        record_forward(layer.executor, lseen, nm)
+    before = read_counts()
+    with tm.section("lora train", sync=sync):
+        losses = trainer.train(data, epochs=1, fhe="execute")
+    train_counts = delta(before)
+    paths["lora"] = read_counts()
+    step_counts = {k: v / len(data) for k, v in train_counts.items()}
+    check(all(math.isfinite(v) for v in losses), f"lora: finite losses ({losses})")
+    moved = [float(layer.lora_b.weight.detach().abs().max()) for layer in lt._lora_layers.values()]
+    check(all(m > 0 for m in moved), f"lora: lora_b moved off zero in both layers ({moved})")
+    check(step_counts == {"K1": 7 * len(names), "K2": 4 * len(names), "K3": 0, "K4": 0},
+          f"lora: 7 K1 and 4 K2 per base layer per step, no K3/K4 ({step_counts})")
+    lora_lsbs = []
+    for nm, layer in lt._lora_layers.items():
+        ex = layer.executor
+        lora_lsbs.append(lsbs_off(lseen[nm][0], lseen[nm][1], ex.w_q, ex.w_quant, ex.n_bits_in, ex.bias))
+    check(max(lora_lsbs) <= 256, f"lora: each base layer's EXECUTE within 256 LSBs of DISABLE ({lora_lsbs})")
+    step_ms = tm.report()["lora train"]["mean_ms"] / len(data)
+    out["lora"] = dict(step_ms=step_ms, losses=losses, lsbs=lora_lsbs, launches_per_step=step_counts)
+    print(f"lora: LoraTraining 784 -> 128 -> 128 -> 10, layers {', '.join(names)} (rank 4) on FHE at "
+          f"{mm_params.name}, LoraTrainer.train on {len(data)} batches of {ML_BATCH} (EXECUTE): {step_ms:.3f} ms per "
+          f"step; losses {losses}; max |lora_b| {moved}; base EXECUTE vs DISABLE " + ", ".join(f"{v:.3f}" for v in lora_lsbs)
+          + f" accumulator LSBs (budget 256); launches per step {step_counts}", flush=True)
+    del lt, trainer, data
+
+    # -- pandas -----------------------------------------------------------------
+    reset_counts()
+    with tm.section("dataframe keygen", sync=sync):
+        client = DataFrameClient(params=df_params, seed=SEED + 40, value_bits=8, device=dev)
+    hp = np.random.default_rng(SEED + 41)
+    half = MERGE_ROWS // 2
+    keys = hp.choice(np.arange(1, 256), MERGE_ROWS + half, replace=False)
+    lk, rk = keys[:MERGE_ROWS], hp.permutation(keys[half:])  # left keys [half:] match
+    left = Frame({"k": lk, "a": hp.integers(1, 256, MERGE_ROWS)})
+    right = Frame({"k": rk, "b": hp.integers(1, 256, MERGE_ROWS)})
+    el, er = client.encrypt_from_pandas(left), client.encrypt_from_pandas(right)
+    # the merge's K4 calls pass through a recorder that keeps the inputs and
+    # output of the first call at each batch size (the kernel still counts
+    # its own launches), for the check against plain after the window
+    k4_calls, k4_seen = {}, [0]
+
+    def k4_steps(acc, a, *args):
+        res = mbc.group_steps(acc, a, *args)
+        k4_seen[0] += 1
+        if acc.shape[0] not in k4_calls:
+            k4_calls[acc.shape[0]] = (acc, a, args, res.clone())
+        return res
+
+    pbs = ri.multibit_programmable_bootstrap
+    ri.multibit_programmable_bootstrap = lambda ct, lut, bsk, engine: pbs(ct, lut, bsk, engine, k4_steps)
+    ri._pbs.rows = 0
+    try:
+        before = read_counts()
+        with tm.section("merge", sync=sync):
+            merged = el.merge(er, on="k")
+        merge_counts = delta(before)
+    finally:
+        ri.multibit_programmable_bootstrap = pbs
+    n_pbs = ri._pbs.rows
+    paths["pandas"] = read_counts()
+    match = dict(zip(rk.tolist(), right["b"].tolist()))
+    want_cols = {"k": lk, "a": left["a"], "b": np.array([match.get(k, 0) for k in lk.tolist()])}
+    got_cols = {name: ri.decrypt_radix(client.ck, c).cpu().numpy() for name, c in merged.columns.items()}
+    check(list(got_cols) == ["k", "a", "b"] and all(np.array_equal(got_cols[c], want_cols[c]) for c in want_cols),
+          "pandas: the merged columns equal numpy's left merge (0 where no key matches)")
+    check(merge_counts["K4"] > 0 and merge_counts["K3"] == 0, f"pandas: K4 launched and K3 not ({merge_counts})")
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_edf_")
+    tmp_dirs.append(save_dir)
+    merged.save(f"{save_dir}/merged.edf")
+    back = EncryptedDataFrame.load(f"{save_dir}/merged.edf", client.sk)
+    check(all(torch.equal(back.columns[c].blocks, merged.columns[c].blocks) and back.columns[c].blocks.device.type == dev.type
+              for c in merged.columns), "pandas: save -> load round-trips on the card")
+    merge_ms = tm.report()["merge"]["mean_ms"]
+    # K4's own output at the first merge call of each batch size against its
+    # plain version on the same inputs, on its first and last 4 ciphertexts
+    check(k4_seen[0] == merge_counts["K4"], f"pandas: every K4 launch of the merge went through the recorder "
+                                            f"({k4_seen[0]} of {merge_counts['K4']})")
+    k4_errs = {}
+    for nb, (acc, a, args, res) in sorted(k4_calls.items()):
+        pick = torch.unique(torch.cat([torch.arange(min(4, nb)), torch.arange(max(nb - 4, 0), nb)])).to(dev)
+        plain = mbc.group_steps_plain(acc[pick].contiguous(), a[:, pick].contiguous(), *args)
+        k4_errs[nb] = int((res[pick] - plain).abs().max())
+    del k4_calls
+    out["k4_err"] = max(k4_errs.values())
+    check(out["k4_err"] == 0, f"pandas: K4 at the merge's first call of each batch size vs plain ({k4_errs})")
+    p = df_params
+    out["pandas"] = dict(merge_ms=merge_ms, pbs=n_pbs, launches=merge_counts, rows=MERGE_ROWS, k4_errs=k4_errs,
+                         matches=half, keygen_ms=tm.report()["dataframe keygen"]["mean_ms"])
+    print(f"pandas: DataFrameClient at {p.name}, value_bits 8, left merge of {MERGE_ROWS} x {MERGE_ROWS} rows "
+          f"({half} keys matching): {merge_ms:.3f} ms per merge, {n_pbs} PBS (counted), launches {merge_counts}; "
+          f"keygen {out['pandas']['keygen_ms']:.3f} ms; decrypted columns equal numpy's merge; save -> load "
+          f"round-trips; K4 at the merge's first call of each batch size vs plain on up to 8 of its ciphertexts "
+          f"(batch: err) {k4_errs}", flush=True)
+    for d in tmp_dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    out["paths"] = paths
     return out
 
 
@@ -1379,11 +1741,16 @@ def main() -> int:
     b, o = k3_bound(ml["k3"]["batch"])
     kern["K3"]["ms_by_batch"][str(ml["k3"]["batch"])] = dict(ms=ml["k3"]["ms"], bound_ms=b, bound_by=o)
 
+    # -- path 10: the ML deployment side: hybrid over HTTP, LoRA, pandas merge --
+    dep = ml_deploy_phase(dev, reset_counts, read_counts, MM, MB3)
+    paths.update(dep["paths"])
+    kern["K4"]["max_abs_err"] = max(kern["K4"]["max_abs_err"], dep["k4_err"])
+
     kern["K1"] = dict(
         name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
                                                                    k1_bool_err, k1_pks_err, k1_pke_err,
-                                                                   ml["ntt_err"]["K1"],
+                                                                   ml["ntt_err"]["K1"], dep["ntt_err"]["K1"],
                                                                    *(v[0] for v in edge.values()),
                                                                    *(v[1] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop, "boolean": k1_bool,
@@ -1394,6 +1761,7 @@ def main() -> int:
         name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:518",
         max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, k2_pke_err, ml["ntt_err"]["K2"],
+                        dep["ntt_err"]["K2"],
                         *(v[2] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop, "boolean": k2_bool,
                                       "matmul_mask": k2_mask}, **{

@@ -200,8 +200,10 @@ def test_package_imports_no_jax():
         "tfhe_tpu_torch.ml.quantized_module, tfhe_tpu_torch.ml.quantized_ops, tfhe_tpu_torch.ml.onnx_frontend, "
         "tfhe_tpu_torch.ml.torch_export, tfhe_tpu_torch.ml.torch_models, tfhe_tpu_torch.ml.fhe_pipeline, "
         "tfhe_tpu_torch.ml.qat_fhe, tfhe_tpu_torch.ml.base, tfhe_tpu_torch.ml.sklearn, tfhe_tpu_torch.ml.zoo, "
-        "tfhe_tpu_torch.ml.tree; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn')); "
+        "tfhe_tpu_torch.ml.tree, tfhe_tpu_torch.ml.deploy, tfhe_tpu_torch.ml.hybrid_server, "
+        "tfhe_tpu_torch.ml.hybrid, tfhe_tpu_torch.ml.lora, tfhe_tpu_torch.ml.pandas, "
+        "tfhe_tpu_torch.ml.p_error_search, tfhe_tpu_torch.utils.profiling; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn', 'pandas')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -1,8 +1,11 @@
 """ML layers over the port's encrypted primitives (counterpart of
 tfhe_tpu/ml/): quantization, the GLWE linear executor, the quantized
 module and op graph (torch, ONNX and QAT import), the full-FHE
-FheSequential, serialization and the sklearn-style model zoo.
-scikit-learn is imported only where a model is fit on it."""
+FheSequential, serialization, the sklearn-style model zoo, and the
+deployment side: the deploy triplet, hybrid models served over HTTP,
+LoRA on FHE base layers, encrypted dataframes and the p_error search.
+scikit-learn is imported only where a model is fit on it, pandas only
+where a frame is decrypted to one."""
 
 from tfhe_tpu_torch.ml.quantization import QuantizedArray, UniformQuantizer, get_n_bits_dict
 from tfhe_tpu_torch.ml.common import FheMode
@@ -53,6 +56,16 @@ from tfhe_tpu_torch.ml.zoo import (
     PoissonRegressor,
     SGDClassifier,
     TweedieRegressor,
+)
+from tfhe_tpu_torch.ml.hybrid import (
+    HybridFHEModel,
+    RemoteHybridModel,
+    serve_hybrid_model,
+)
+from tfhe_tpu_torch.ml.hybrid_server import (
+    HTTPTransport,
+    HybridFHEModelServer,
+    HybridHTTPServer,
 )
 from tfhe_tpu_torch.ml.torch_export import (
     compile_torch_model_via_onnx,

@@ -54,8 +54,8 @@ def _classes() -> dict:
     blob may name."""
     from tfhe_tpu_torch import params
     from tfhe_tpu_torch.api import compact_pke, public_key, threshold
-    from tfhe_tpu_torch.core import bootstrap, keys, lwe, multibit
-    from tfhe_tpu_torch.models import integer, shortint
+    from tfhe_tpu_torch.core import bootstrap, keys, lwe, multibit, packing
+    from tfhe_tpu_torch.models import glwe_matmul, integer, shortint
 
     table = {}
     for mod, names in (
@@ -64,6 +64,8 @@ def _classes() -> dict:
         (lwe, ("KeyswitchKey",)),
         (bootstrap, ("BootstrapKey",)),
         (multibit, ("MultiBitBootstrapKey",)),
+        (packing, ("PackingKeyswitchKey",)),
+        (glwe_matmul, ("EncryptedMatrix", "CompressedResultMatrix")),
         (shortint, ("ClientKey", "ServerKey", "Ciphertext")),
         (integer, ("RadixCiphertext",)),
         (public_key, ("CompactPublicKey",)),
