@@ -9,8 +9,22 @@ shapes the main paths give it (bit-exact; the forward NTT mod p; K1 and
 K2 also at the loop path's shapes, at ragged row counts of 1, 3 and 1537
 with the extreme int32 and u64 inputs, at N = 1024 and 2048, and at the
 compact-PKE public key's (1152, 1, 1024) u64 masks; K3 and K4
-also at ragged batches of 1, 3 and 64 ciphertexts). Then it drives,
-through the entry points a user calls, at full width:
+also at ragged batches of 1, 3 and 64 ciphertexts). First it holds the
+port's FheRng (JAX's threefry2x32) on the card against the CPU: from one
+seed, after a split and a fork, uniform_torus, binary and tuniform(17),
+tuniform(61) draw the same 2^20 values each (`rng:` line). Then it runs
+itself with --four-prime in a child process under TFHE_TPU_PRIMES=4 (the
+JAX package's process-level prime switch): K1-K4 launched at P = 4, the
+4-prime CRT set FOLDED_PRIMES_4, held against their plain versions bit
+for bit (K1 and K2 at the keygen's shapes and at ragged rows with extreme
+inputs, K3 and K4 at 1, 3 and 64 ciphertexts and on the first 8
+ciphertexts of their paths), the clusters of 4 blocks the card holds at
+once, and, counts reset before each, the 2_2 keygen (K1, K2) with
+apply_lut on 512 ciphertexts (K3) and the GROUP_3 keygen with apply_lut on
+512 (K4), decrypted, with the keys' msb (55) and bytes (`four_prime:`
+lines); the parent prints each P = 4 kernel time beside the same kernel's
+P = 3 time of this run, and the four P = 4 entries join the kernels line.
+Then it drives, through the entry points a user calls, at full width:
 
 1. the classic shortint path at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
    (K1/K2 in keygen, K3 in every PBS): keygen, encrypt 512 values,
@@ -115,6 +129,8 @@ API_USER_HANDLES = 4  # balances decrypted through /user-decrypt's threshold pro
 MM_R, MM_C, MM_O = 32, 2048, 1024  # enc(R x C) x clear(C x O), scripts/bench_matmul.py's shape
 ML_BATCH = 32  # images of the full-FHE classifier, rows of the compiled MLP's forward
 MERGE_ROWS = 32  # rows of each side of the encrypted dataframe merge
+RNG_VALUES = 1 << 20  # values of each sampler in the card-vs-CPU RNG check
+P4_PLAIN_CT = 8  # ciphertexts of the 4-prime paths held against K3's and K4's plain versions
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
 # integer instructions.
@@ -1091,6 +1107,293 @@ def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dic
     return out
 
 
+def random_inputs(eng, seed: int):
+    """Random kernel inputs on the engine's device from a seeded generator,
+    and the two error measures: rand_i32(shape, lo, hi), rand_u64(shape),
+    rand_key_rows(lead) (Shoup key rows of the engine's primes at its N),
+    mod_err (max difference mod each prime: K1's lazy residues) and
+    exact_err."""
+    import torch
+
+    dev, n, n_pr = eng.device, eng.n, eng.n_primes
+    primes = torch.tensor(eng.primes, device=dev).view(1, n_pr, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand_i32(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+
+    def rand_u64(shape):
+        hi = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
+        lo = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
+        return (hi << 32) | lo
+
+    def rand_key_rows(lead):
+        res = torch.remainder(rand_u64(lead + (n_pr, n)) & 0x3FFFFFFF, primes.view(n_pr, 1))
+        return eng.make_shoup(res.to(torch.int32))
+
+    def mod_err(a, b):
+        return int(((a.to(torch.int64) % primes) - (b.to(torch.int64) % primes)).abs().max())
+
+    def exact_err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    return rand_i32, rand_u64, rand_key_rows, mod_err, exact_err
+
+
+def rng_phase(dev) -> None:
+    """The port's FheRng (JAX's threefry2x32) draws on the card what it
+    draws on the CPU from the same seed: uniform_torus, binary and
+    tuniform(b) for b = 17 and 61, RNG_VALUES values each, after a split
+    and a fork; then the card's time per uniform_torus draw."""
+    import torch
+
+    from tfhe_tpu_torch.rng import FheRng
+
+    t0 = time.perf_counter()
+    card, host = FheRng(SEED, dev).split(3)[2].fork(), FheRng(SEED, "cpu").split(3)[2].fork()
+    draws = {
+        "uniform_torus": lambda r: r.uniform_torus((RNG_VALUES,)),
+        "binary": lambda r: r.binary((RNG_VALUES,)),
+        "tuniform17": lambda r: r.tuniform(17, (RNG_VALUES,)),
+        "tuniform61": lambda r: r.tuniform(61, (RNG_VALUES,)),
+    }
+    diff = {}
+    for name, draw in draws.items():
+        a, b = draw(card), draw(host)
+        check(a.is_cuda and a.shape == b.shape, f"rng: {name} drawn on the card")
+        diff[name] = int((a.cpu() != b).sum())
+    check(all(v == 0 for v in diff.values()), f"rng: the card's draws equal the CPU's ({diff} values differ)")
+    ms = cuda_ms(lambda: FheRng(SEED, dev).uniform_torus((RNG_VALUES,)), 5)
+    print(f"rng: FheRng({SEED}) split/fork, {RNG_VALUES} values each of uniform_torus, binary, tuniform(17), "
+          f"tuniform(61): card == CPU, differing {diff}; uniform_torus of {RNG_VALUES} on the card "
+          f"{ms:.4f} ms; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_four_prime() -> dict:
+    """Run this script with --four-prime in a child process under
+    TFHE_TPU_PRIMES=4, echo its lines and return the result on its last
+    line. The child reuses the kernels built here (P is a runtime argument)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--four-prime"],
+        env=dict(os.environ, TFHE_TPU_PRIMES="4"), capture_output=True, text=True, timeout=900,
+    )
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"the 4-prime child failed (exit {proc.returncode}): {proc.stderr[-4000:]}")
+    res = json.loads(lines[-1])["four_prime"]
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"four_prime: child process {res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+def four_prime_main() -> int:
+    """The 4-prime path (run by main() in a child process under
+    TFHE_TPU_PRIMES=4, the JAX package's process-level switch, read once at
+    import; shortint.keygen takes no prime set): K1-K4 launched at P = 4
+    and held against their plain versions bit for bit (K1 mod p); then,
+    counts reset before each, the 2_2 keygen (K1, K2) with apply_lut on
+    BATCH ciphertexts (K3), and the GROUP_3 keygen with apply_lut on BATCH
+    (K4), decrypted. K3 and K4 run at the paths' full shape; their plain
+    versions, host-bound at ~40 s for 512 ciphertexts, on the first
+    P4_PLAIN_CT of them. The last line is one JSON object that main() reads."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --four-prime: no CUDA device", file=sys.stderr)
+        return 2
+
+    from tfhe_tpu_torch import _build
+    from tfhe_tpu_torch import params as tp
+    from tfhe_tpu_torch.core.lwe import keyswitch
+    from tfhe_tpu_torch.core import multibit as mb
+    from tfhe_tpu_torch.models import shortint as si
+    from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
+    from tfhe_tpu_torch.ops import multibit_cuda as mbc
+    from tfhe_tpu_torch.ops import ntt_cuda
+    from tfhe_tpu_torch.ops.folded_ntt import FOLDED_PRIMES, FOLDED_PRIMES_4, default_primes, get_folded_engine
+    from tfhe_tpu_torch.rng import FheRng
+    from tfhe_tpu_torch.torus import mod_switch, negacyclic_monomial_rotate
+
+    check(default_primes() == FOLDED_PRIMES_4, f"TFHE_TPU_PRIMES=4 selects FOLDED_PRIMES_4, got {default_primes()}")
+    PARAMS = tp.PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    MB3 = tp.PARAM_MULTI_BIT_GROUP_3_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    dev = torch.device("cuda")
+    build_s = _build.build_all()
+    wrappers = {"K1": ntt_cuda.forward, "K2": ntt_cuda.inverse, "K3": brc.cmux_steps, "K4": mbc.group_steps}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in wrappers.items()}
+
+    n = PARAMS.polynomial_size
+    eng = get_folded_engine(n, dev)
+    n_pr = eng.n_primes
+    check(n_pr == 4 and eng.max_product_bits == 83, f"P = 4 engine at N = {n} ({n_pr} primes, {eng.max_product_bits} bits)")
+    rand_i32, rand_u64, rand_key_rows, mod_err, exact_err = random_inputs(eng, SEED + 4)
+    err = {k: [] for k in wrappers}
+    clusters = {"K3": brc.max_active_clusters(eng), "K4 g=3": mbc.max_active_clusters(eng, 3)}
+    eng3 = get_folded_engine(n, dev, primes=FOLDED_PRIMES)
+    clusters_p3 = {"K3": brc.max_active_clusters(eng3), "K4 g=3": mbc.max_active_clusters(eng3, 3)}
+    print(f"four_prime: primes {eng.primes} (CRT range 2^{math.log2(math.prod(eng.primes)):.2f}, max_product_bits "
+          f"{eng.max_product_bits}); build_s {build_s:.3f} (reused); clusters of {n_pr} resident at once {clusters} "
+          f"(of 3 at P = 3: {clusters_p3})", flush=True)
+
+    # -- K1 and K2 at P = 4 ------------------------------------------------------
+    x3 = rand_i32((BATCH, n), -(2**23), 2**23 + 1)
+    x4 = rand_i32((BATCH, n), -(2**31) + 1, 2**31)
+    f4 = ntt_cuda.forward(eng, x4, small=True)
+    err["K1"] += [mod_err(eng.forward_small(x3), eng.forward_small_plain(x3)), mod_err(f4, eng.forward_i32_plain(x4))]
+    err["K2"].append(exact_err(ntt_cuda.inverse(eng, f4), eng.inverse_plain(f4)))
+    polys = rand_i32((2 * n, n), -1, 2)  # keygen's largest K1 call: a monomial table
+    err["K1"].append(mod_err(eng.forward_small(polys), eng.forward_small_plain(polys)))
+    k1 = dict(**kernel_ms(lambda: eng.forward_small(polys), 10, "k1_forward"),
+              plain_ms=cuda_ms(lambda: eng.forward_small_plain(polys), 2), shape=f"({2 * n}, {n}) int32 -> ({2 * n}, {n_pr}, {n})")
+    k1["bound_ms"], k1["bound_by"] = k1_bound(2 * n, n_pr, n, 4)
+    u = rand_u64((4 * PARAMS.lwe_dimension, n))
+    err["K1"].append(mod_err(eng.forward_u64(u), eng.forward_u64_plain(u)))
+    rows2 = 2 * PARAMS.lwe_dimension  # keygen's K2 call: the BSK's GLWE encryption
+    f2 = eng.forward_u64(rand_u64((rows2, n)))
+    err["K2"].append(exact_err(ntt_cuda.inverse(eng, f2), eng.inverse_plain(f2)))
+    k2 = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng, f2), 10, "k2_inverse"),
+              plain_ms=cuda_ms(lambda: eng.inverse_plain(f2), 2), shape=f"({rows2}, {n_pr}, {n})")
+    k2["bound_ms"], k2["bound_by"] = k2_bound(rows2, n_pr, n)
+    i32_ext = torch.tensor([2**31 - 1, -(2**31) + 1, -(2**31), -1, 0, 1], device=dev, dtype=torch.int32)
+    u64_ext = torch.tensor([0, -1, 1, 2**32 - 1, 2**32, -(2**63)], device=dev, dtype=torch.int64)
+    for rows in (1, 3, 1537):
+        xi = rand_i32((rows, n), -(2**31), 2**31)
+        xi[0, :6] = i32_ext
+        xu = rand_u64((rows, n))
+        xu[0, :6] = u64_ext
+        fi = ntt_cuda.forward(eng, xi, small=True)
+        err["K1"] += [mod_err(fi, eng.forward_i32_plain(xi)),
+                      mod_err(ntt_cuda.forward(eng, xu, small=False), eng.forward_u64_plain(xu))]
+        err["K2"].append(exact_err(ntt_cuda.inverse(eng, fi), eng.inverse_plain(fi)))
+    check(not any(err["K1"] + err["K2"]), f"K1/K2 at P = 4 vs plain (err K1 {err['K1']}, K2 {err['K2']})")
+    print(f"four_prime: check K1 (512, {n}) nb=3/nb=4, ({2 * n}, {n}), u64 ({4 * PARAMS.lwe_dimension}, {n}), ragged "
+          f"1/3/1537 rows with extreme inputs: err {err['K1']}; K2 err {err['K2']}; K1 {k1['ms']:.4f} ms at "
+          f"({2 * n}, {n}) (plain {k1['plain_ms']:.4f}), K2 {k2['ms']:.4f} ms at ({rows2}, {n_pr}, {n}) "
+          f"(plain {k2['plain_ms']:.4f})", flush=True)
+    del x3, x4, f4, polys, u, f2
+
+    # -- K3 and K4 at P = 4: 4 steps / groups at ragged batches ----------------
+    base_log = PARAMS.pbs.base_log
+    acc = rand_u64((64, 2, n))
+    rot_table = brc.monomial_ntt_table(eng)
+    bsk = rand_key_rows((4, 2, 2))
+    for nb in (1, 3, 64):
+        exps = rand_i32((4, nb), 0, 2 * n)
+        exps[0, 0], exps[1, nb // 2], exps[2, nb - 1], exps[3, 0] = 0, n, 2 * n - 1, n + 1
+        err["K3"].append(exact_err(brc.cmux_steps(acc[:nb], exps, bsk, rot_table, eng, base_log, 9),
+                                   brc.cmux_steps_plain(acc[:nb], exps, bsk, rot_table, eng, base_log, 9)))
+    x_table = mb.monomial_x_table(eng)
+    for g in mbc.GROUP_SIZES:
+        bsk = rand_key_rows((4, 1 << g, 2, 2))
+        for nb in (1, 3, 64):
+            a = rand_i32((4 * g, nb), 0, 2 * n)
+            err["K4"].append(exact_err(mbc.group_steps(acc[:nb], a, bsk, x_table, eng, base_log, 9, g),
+                                       mbc.group_steps_plain(acc[:nb], a, bsk, x_table, eng, base_log, 9, g)))
+    check(not any(err["K3"] + err["K4"]), f"K3/K4 at P = 4 vs plain at 1/3/64 ct (err K3 {err['K3']}, K4 {err['K4']})")
+    print(f"four_prime: check K3 (4 steps) at 1/3/64 ct err {err['K3']}; K4 (4 groups, g = 2/3/4) err {err['K4']}",
+          flush=True)
+    del acc, bsk, rot_table, x_table
+
+    vals = torch.arange(BATCH, device=dev) % PARAMS.message_modulus
+    paths, kern, keys = {}, {}, {}
+
+    def run_path(name, params, rng_seed):
+        """keygen, encrypt BATCH values, the identity apply_lut; counted."""
+        reset_counts()
+        t0 = time.perf_counter()
+        ck, sk = si.keygen(params, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        c = si.encrypt(ck, vals, FheRng(rng_seed, "cuda"))
+        lut = si.generate_lut(params, lambda v: v, "cuda")
+        out = si.apply_lut(sk, c, lut, 3)
+        paths[name] = read_counts()
+        check(bool((si.decrypt(ck, out) == vals).all()), f"{name}: identity LUT on {BATCH} ct decrypts to the inputs")
+        ms = cuda_ms(lambda: si.apply_lut(sk, c, lut, 3), 3)
+        keys[name] = dict(msb=64 - sk.bsk.shift, key_bytes=sk.bsk.bsk_ntt.numel() * 4, keygen_s=keygen_s,
+                          apply_lut_ms=ms, pbs_per_s=BATCH / ms * 1e3)
+        small = keyswitch(c.ct, sk.ksk)
+        ms_ = mod_switch(small, int(math.log2(2 * n)))
+        acc0 = negacyclic_monomial_rotate(lut, (2 * n - ms_[..., -1])[..., None]).contiguous()
+        return sk, acc0, ms_[..., :-1].t().to(torch.int32).contiguous()
+
+    def rotation_entry(key, launch, plain, acc0, e_all, shape, bound):
+        """The kernel at the path's full batch, its plain version on the
+        first P4_PLAIN_CT ciphertexts, equal there."""
+        ms = cuda_ms(lambda: launch(acc0, e_all), 3)
+        out = launch(acc0, e_all)
+        box = {}
+        plain_ms = host_ms(lambda: box.update(out=plain(acc0[:P4_PLAIN_CT].contiguous(), e_all[:, :P4_PLAIN_CT].contiguous())))
+        err[key].append(exact_err(out[:P4_PLAIN_CT], box["out"]))
+        check(err[key][-1] == 0, f"{key} at P = 4 vs plain on the first {P4_PLAIN_CT} ct of the path (err {err[key][-1]})")
+        b, o = bound
+        return dict(ms=ms, plain_ms=plain_ms, plain_shape=f"{P4_PLAIN_CT} ct", bound_ms=b, bound_by=o, shape=shape)
+
+    # -- the classic path at P = 4: keygen (K1, K2), apply_lut on BATCH (K3) ------
+    sk, acc0, e_all = run_path("classic_p4", PARAMS, SEED + 1)
+    steps = PARAMS.lwe_dimension
+    k3args = (sk.bsk.bsk_ntt, sk.bsk.rot_table, eng, base_log, sk.bsk.shift)
+    kern["K3"] = rotation_entry(
+        "K3", lambda a, e: brc.cmux_steps(a, e, *k3args), lambda a, e: brc.cmux_steps_plain(a, e, *k3args),
+        acc0, e_all, f"{BATCH} ct x {steps} steps",
+        bound_ms(rotation_bytes(BATCH, steps, keys["classic_p4"]["key_bytes"], 1, n_pr, n), cmux_ops(BATCH, steps, n_pr, n)),
+    )
+    del sk, acc0, e_all, k3args
+    # -- the GROUP_3 path at P = 4: keygen, apply_lut on BATCH (K4) -------------
+    g3 = si.multibit_group_of(MB3)
+    sk, acc0, e_all = run_path("multibit_p4", MB3, SEED + 2)
+    groups = sk.bsk.n_groups
+    k4args = (sk.bsk.bsk_ntt, sk.bsk.rot_table, eng, base_log, sk.bsk.shift, g3)
+    kern["K4"] = rotation_entry(
+        "K4", lambda a, e: mbc.group_steps(a, e, *k4args), lambda a, e: mbc.group_steps_plain(a, e, *k4args),
+        acc0, e_all, f"{BATCH} ct x {groups} groups (g={g3})",
+        bound_ms(rotation_bytes(BATCH, groups, keys["multibit_p4"]["key_bytes"], g3, n_pr, n),
+                 group_step_ops(BATCH, groups, g3, n_pr, n)),
+    )
+    del sk, acc0, e_all, k4args
+    check(all(paths["classic_p4"][k] > 0 for k in ("K1", "K2", "K3")) and paths["classic_p4"]["K4"] == 0,
+          f"K1-K3 (and not K4) launched on the classic path at P = 4 {paths['classic_p4']}")
+    check(paths["multibit_p4"]["K4"] > 0 and paths["multibit_p4"]["K3"] == 0,
+          f"K4 (and not K3) launched on the GROUP_3 path at P = 4 {paths['multibit_p4']}")
+    check(keys["classic_p4"]["msb"] == 55 and keys["multibit_p4"]["msb"] == 55,
+          f"the 4-prime keys keep 55 bits (classic {keys['classic_p4']['msb']}, GROUP_3 {keys['multibit_p4']['msb']})")
+    for name, k in keys.items():
+        print(f"four_prime: {name}: keygen_s {k['keygen_s']:.3f}, msb {k['msb']}, BSK {k['key_bytes']} bytes; "
+              f"apply_lut on {BATCH} {k['apply_lut_ms']:.3f} ms ({k['pbs_per_s']:.1f} PBS/s), decrypt ok; "
+              f"launches {paths[name]}", flush=True)
+
+    sources = {"K1": ("ntt_forward_p4", "tfhe_tpu_torch/csrc/ntt.cu", "tfhe_tpu/ops/pallas_ntt.py:494", "classic_p4", k1),
+               "K2": ("ntt_inverse_p4", "tfhe_tpu_torch/csrc/ntt.cu", "tfhe_tpu/ops/pallas_ntt.py:518", "classic_p4", k2),
+               "K3": ("cmux_steps_p4", "tfhe_tpu_torch/csrc/blind_rotate.cu",
+                      "tfhe_tpu/ops/pallas_blind_rotate.py:279", "classic_p4", kern["K3"]),
+               "K4": ("group_steps_p4", "tfhe_tpu_torch/csrc/multibit.cu",
+                      "tfhe_tpu/ops/pallas_multibit.py:184", "multibit_p4", kern["K4"])}
+    entries = {}
+    for key, (name, src, repl, path, t) in sources.items():
+        entries[key] = dict(name=name, route="cuda", source=src, replaces=repl, launches=paths[path][key],
+                            max_abs_err=max(err[key]), equal=max(err[key]) == 0, ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None, path=path,
+                            shape=t["shape"], nprimes=n_pr, **({"plain_shape": t["plain_shape"]} if "plain_shape" in t else {}))
+        print(f"four_prime: {key} {name} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms"
+              + (f" on {t['plain_shape']}" if "plain_shape" in t else "")
+              + f", bound {t['bound_ms']:.4f} by {t['bound_by']}), launches {paths[path][key]}, err {max(err[key])}",
+              flush=True)
+    print(json.dumps({"four_prime": dict(primes=list(eng.primes), kernels=entries, paths=paths, keys=keys,
+                                         clusters=clusters, clusters_p3=clusters_p3)}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1114,7 +1417,7 @@ def main() -> int:
     from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
     from tfhe_tpu_torch.ops import multibit_cuda as mbc
     from tfhe_tpu_torch.ops import ntt_cuda
-    from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
+    from tfhe_tpu_torch.ops.folded_ntt import FOLDED_PRIMES, get_folded_engine
     from tfhe_tpu_torch.rng import FheRng
     from tfhe_tpu_torch.torus import mod_switch, negacyclic_monomial_rotate
 
@@ -1155,29 +1458,15 @@ def main() -> int:
     n = PARAMS.polynomial_size
     eng = get_folded_engine(n, dev)
     n_pr = eng.n_primes
+    check(eng.primes == FOLDED_PRIMES, f"the parent runs the 3-prime set (TFHE_TPU_PRIMES unset), got {eng.primes}")
     primes = torch.tensor(eng.primes, device=dev).view(1, n_pr, 1)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
     kern = {}
     paths = {}
+    rand_i32, rand_u64, rand_key_rows, mod_err, exact_err = random_inputs(eng, SEED)
 
-    def rand_i32(shape, lo, hi):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
-
-    def rand_u64(shape):
-        hi = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
-        lo = torch.randint(0, 2**32, shape, generator=gen, device=dev, dtype=torch.int64)
-        return (hi << 32) | lo
-
-    def rand_key_rows(lead):
-        res = torch.remainder(rand_u64(lead + (n_pr, n)) & 0x3FFFFFFF, primes.view(n_pr, 1))
-        return eng.make_shoup(res.to(torch.int32))
-
-    def mod_err(a, b):
-        return int(((a.to(torch.int64) % primes) - (b.to(torch.int64) % primes)).abs().max())
-
-    def exact_err(a, b):
-        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+    # -- the RNG on the card against the CPU, then the 4-prime child ------------
+    rng_phase(dev)
+    p4 = run_four_prime()
 
     # -- kernels vs plain ------------------------------------------------------
     # K1 on 512 random rows, nb=3 (|x| <= 2^23) and nb=4 (|x| < 2^31)
@@ -1409,6 +1698,7 @@ def main() -> int:
     check(k3_err == 0, f"K3 vs plain at the classic path's shape (err {k3_err})")
     steps = PARAMS.lwe_dimension
     k3_key_bytes = sk.bsk.bsk_ntt.numel() * 4
+    keys_p3 = {"classic": dict(msb=64 - sk.bsk.shift, key_bytes=k3_key_bytes, keygen_s=keygen_s, pbs_ms=pbs_ms)}
 
     def k3_bound(nb):
         return bound_ms(rotation_bytes(nb, steps, k3_key_bytes, 1, n_pr, n), cmux_ops(nb, steps, n_pr, n))
@@ -1483,6 +1773,7 @@ def main() -> int:
     check(k4_err == 0, f"K4 vs plain at the multi-bit path's shape, first 64 ct (err {k4_err})")
     groups = sk.bsk.n_groups
     key_bytes = sk.bsk.bsk_ntt.numel() * 4
+    keys_p3["multibit"] = dict(msb=64 - sk.bsk.shift, key_bytes=key_bytes, keygen_s=mb_keygen_s, pbs_ms=mb_pbs_ms)
 
     def k4_bound(nb):
         return bound_ms(rotation_bytes(nb, groups, key_bytes, g3, n_pr, n), group_step_ops(nb, groups, g3, n_pr, n))
@@ -1781,7 +2072,24 @@ def main() -> int:
         plain = f"plain {k['plain_ms']:.4f} ms" + (f" on {k['plain_shape']}" if "plain_shape" in k else "")
         print(f"{key} {k['name']} {k['shape']}: {k['ms']:.4f} ms ({plain}, "
               f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), launches {k['launches_by_path']}", flush=True)
-    print(json.dumps({"kernels": [{f: k[f] for f in order if f in k} for k in kern.values()]}), flush=True)
+    # the 4-prime child's kernels, each beside the same kernel at P = 3 in this run
+    at_p3 = {"K1": kern["K1"]["ms_by_shape"]["keygen"], "K2": kern["K2"]["ms_by_shape"]["keygen"],
+             "K3": kern["K3"]["ms_by_batch"][str(BATCH)], "K4": kern["K4"]["ms_by_batch"][str(BATCH)]}
+    for key, k in p4["kernels"].items():
+        check(k["launches"] > 0 and k["equal"], f"{key} at P = 4 launched on its path and equal to its plain version")
+        k["p3_ms"] = at_p3[key]["ms"]
+        print(f"{key} at P = 4 ({k['shape']}): {k['ms']:.4f} ms against {k['p3_ms']:.4f} ms at P = 3 "
+              f"(x{k['ms'] / k['p3_ms']:.3f}); bound {k['bound_ms']:.4f} by {k['bound_by']} against "
+              f"{at_p3[key]['bound_ms']:.4f}; launches {k['launches']} on {k['path']}", flush=True)
+    for name, p3_name in (("classic_p4", "classic"), ("multibit_p4", "multibit")):
+        k4, k3 = p4["keys"][name], keys_p3[p3_name]
+        print(f"keys at P = 4 against P = 3, {p3_name}: msb {k4['msb']} against {k3['msb']}; BSK {k4['key_bytes']} "
+              f"against {k3['key_bytes']} bytes (x{k4['key_bytes'] / k3['key_bytes']:.3f}); keygen_s "
+              f"{k4['keygen_s']:.3f} against {k3['keygen_s']:.3f}; apply_lut on {BATCH} {k4['apply_lut_ms']:.3f} "
+              f"against {k3['pbs_ms']:.3f} ms", flush=True)
+    kern_list = [{f: k[f] for f in order if f in k} for k in kern.values()]
+    kern_list += [{f: k[f] for f in order + ("nprimes", "p3_ms") if f in k} for k in p4["kernels"].values()]
+    print(json.dumps({"kernels": kern_list}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {
@@ -1794,4 +2102,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(four_prime_main() if sys.argv[1:] == ["--four-prime"] else main())

@@ -16,6 +16,9 @@ across with `convert`:
   bytes);
 * pk_encrypt_blocks and the port's own compact-PKE lists decrypt to their
   values; threshold partials combine to the clear value;
+* with no `convert`, the port draws the reference's keys from the same
+  seeds (the keygen, the compact-PKE keys and a list with its witnesses,
+  the compact public key, the threshold shares);
 * the key cache keeps the reference's file name and skips the disk on the
   card; every device entry point raises without a card unless given
   device="cpu".
@@ -35,6 +38,7 @@ from tfhe_tpu.api import costs as jcosts
 from tfhe_tpu.api import handles as jhd
 from tfhe_tpu.api import kms as jkms
 from tfhe_tpu.api import mlkem as jml
+from tfhe_tpu.api import public_key as jpk
 from tfhe_tpu.api import secp256k1 as jec
 from tfhe_tpu.api import shamir as jsh
 from tfhe_tpu.api import threshold as jth
@@ -341,6 +345,29 @@ def test_threshold_partials_combine(ref):
     jshare = jth.KeyShare(share=jnp.asarray(_u64.u64_to_numpy(shares[0].share)), party=0, n_parties=3)
     want = jth.partial_decrypt(jnp.asarray(_u64.u64_to_numpy(ct)), jshare, JaxRng(0))
     np.testing.assert_array_equal(_u64.u64_to_numpy(tth.partial_decrypt(ct, shares[0], None)), np.asarray(want))
+
+
+def test_port_draws_the_reference_keys_and_lists(ref):
+    """The port's FheRng is the reference's threefry stream: its own keygen
+    at seed 41, compact-PKE keys from FheRng(42), a list under FheRng(43),
+    the public key and the threshold shares equal the reference's."""
+    ck, sk = tsi.keygen(tp.TOY_SHORTINT, seed=41, device="cpu")
+    for mine, carried in ((ck.glwe_key.key, ref.tck.glwe_key.key), (ck.lwe_key.key, ref.tck.lwe_key.key),
+                          (sk.bsk.bsk_ntt, ref.tsk.bsk.bsk_ntt), (sk.ksk.ksk, ref.tsk.ksk.ksk)):
+        assert torch.equal(mine, carried)
+    keys = tcp.gen_compact_pke_keys(ck, tcp.TOY_PKE, FheRng(42, device="cpu"))
+    assert torch.equal(keys.pke_pk, ref.tkeys.pke_pk)
+    assert torch.equal(keys.casting_ksk.ksk, ref.tkeys.casting_ksk.ksk)
+    lst, r, e = tcp.compact_pke_encrypt_with_witness(keys, LIST_VALS, FheRng(43, device="cpu"))
+    np.testing.assert_array_equal(_u64.u64_to_numpy(lst.glwes), np.asarray(ref.jlst.glwes))
+    np.testing.assert_array_equal(np.asarray(r), np.asarray(ref.jr))
+    np.testing.assert_array_equal(np.asarray(e).astype(np.uint64), np.asarray(ref.je))  # signed, as u64 bits
+    pk = tpk.gen_public_key(ck, FheRng(12, device="cpu"))
+    jpk_zeros = jpk.gen_public_key(ref.jck, JaxRng(12)).zeros
+    np.testing.assert_array_equal(_u64.u64_to_numpy(pk.zeros), np.asarray(jpk_zeros))
+    shares = tth.share_secret_key(ck.lwe_key, 3, FheRng(14, device="cpu"))
+    for mine, want in zip(shares, jth.share_secret_key(ref.jck.lwe_key, 3, JaxRng(14))):
+        np.testing.assert_array_equal(_u64.u64_to_numpy(mine.share), np.asarray(want.share))
 
 
 # -- key cache and devices ----------------------------------------------------

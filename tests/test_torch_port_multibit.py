@@ -14,6 +14,8 @@
   digit reduction equals d mod p; bitrev(unfold(h))
   inverts the folded layout; the Garner shares of a cluster cover every
   coefficient once.
+* From the fixture's key the port's FheRng draws the fixture's secret
+  keys, multi-bit BSKs and ciphertexts bit for bit, with no `convert`.
 * Keys from the port's own keygen decrypt right, with the shift and msb of
   JAX's; the level-2 loop form decrypts right; keygen reads g from the
   parameter-set name.
@@ -39,6 +41,9 @@ from tfhe_tpu.rng import FheRng as JaxRng
 from tfhe_tpu.torus import encode, mod_switch, negacyclic_monomial_rotate
 from tfhe_tpu_torch import _u64, convert
 from tfhe_tpu_torch import params as tp
+from tfhe_tpu_torch import torus as ttorus
+from tfhe_tpu_torch.core import keys as tkeys
+from tfhe_tpu_torch.core import lwe as tlwe
 from tfhe_tpu_torch.core import multibit as tmb
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.ops import multibit_cuda as mbc
@@ -88,6 +93,25 @@ def carried():
     ct = encrypt_lwe(lwe_sk, encode(msgs, params.delta), rng, params.lwe_noise)
     lut = jsi.generate_lut(params, LUT_TABLE)
     return params, engine, keys, ct, lut
+
+
+def test_port_draws_the_carried_keys(carried):
+    """The port's FheRng is the JAX package's threefry stream: from the
+    same key it draws the fixture's secret keys, every multi-bit BSK and
+    the ciphertexts, bit for bit, with no `convert`."""
+    params, engine, keys, ct, lut = carried
+    rng = FheRng(np.asarray(jax.random.key_data(jax.random.key(3))), "cpu")
+    eng = get_folded_engine(N, "cpu")
+    glwe_sk = tkeys.gen_glwe_secret_key(rng, 1, N)
+    lwe_sk = tkeys.gen_lwe_secret_key(rng, N_LWE)
+    tparams = tp.TOY_SHORTINT
+    for g in GROUPS:
+        bsk = tmb.gen_multibit_bootstrap_key(
+            lwe_sk, glwe_sk, tp.GadgetParams(base_log=23, level=1), g, rng, tparams.glwe_noise, eng
+        )
+        assert torch.equal(bsk.bsk_ntt, keys[g][1].bsk_ntt) and bsk.shift == keys[g][1].shift
+    mine = tlwe.encrypt_lwe(lwe_sk, ttorus.encode(torch.arange(6), params.delta), rng, tparams.lwe_noise)
+    np.testing.assert_array_equal(_u64.u64_to_numpy(mine), np.asarray(ct))
 
 
 @pytest.mark.parametrize("g", GROUPS)

@@ -14,9 +14,10 @@ its device (the card unless the instance was made for the CPU).
 Counterpart of tfhe_tpu/api/serve.py: the same routes, bodies and
 replies, so the JAX package's client talks to this server unchanged.
 Handlers run on ThreadingHTTPServer threads plus one job-queue worker,
-with the reference's locking; the instance's FheRngs draw from CPU
-torch.Generators (torch serialises draws from one generator), so no two
-threads ever draw from a CUDA generator.
+with the reference's locking. The instance's FheRngs are counter-based
+(threefry2x32, rng.py): each draw takes a fresh subkey under the FheRng's
+own lock and hashes it on the instance's device, so threads sharing one
+FheRng never draw the same values.
 """
 
 from __future__ import annotations

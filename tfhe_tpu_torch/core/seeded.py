@@ -2,12 +2,12 @@
 tfhe_tpu/core/seeded.py).
 
 A ciphertext's masks are pseudorandom, so a seeded ciphertext stores the
-bodies and the seed, and the masks regenerate from (seed, shape). The masks
-come from the port's FheRng, not from threefry: a seeded ciphertext
-round-trips within the port but is not byte-compatible with one of the JAX
-package. The compressed form switches a ciphertext to a storage modulus
-2^log2_modulus <= 2^32 and keeps the payload as int32 bit patterns (torch
-has no u32 arithmetic on the CPU); its wire format is the JAX package's,
+bodies and the seed, and the masks regenerate from (seed, shape). The port's
+FheRng is the JAX package's threefry stream, so a seeded ciphertext of
+either package expands in the other to the same masks. The compressed
+form switches a ciphertext to a storage modulus 2^log2_modulus <= 2^32 and
+keeps the payload as int32 bit patterns (torch has no u32 arithmetic on
+the CPU); its wire format is the JAX package's,
 byte for byte: a header (log2_modulus, ndim, the dims as u32 little-endian)
 and the values bit-packed LSB first at log2_modulus bits each.
 """

@@ -167,6 +167,44 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+// The launch configuration of k3_cmux at N = 2^logn over nprimes primes:
+// one block per (ciphertext, prime), the P blocks of a ciphertext in one
+// cluster, the dynamic shared memory allowed. Returns a cudaError_t.
+static int k3_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], int batch, int logn,
+                     int logc, int nprimes, void* stream) {
+  const int n = 1 << logn;
+  if (nprimes < 1 || nprimes > 4) return (int)cudaErrorInvalidValue;
+  // padded residue rows, omega powers, twiddle rows, the step's psi factors
+  const size_t words = (size_t)(2 * n + (2 * n >> 5)) + (n >> logc) + 4 * n + 2 * (1 << logc);
+  const size_t smem = words * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(k3_cmux, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nprimes;  // the P blocks of one ciphertext
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)(nprimes * batch));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaSuccess;
+}
+
+// How many clusters of k3_cmux can be resident on the device at once
+// (cudaOccupancyMaxActiveClusters) at N = 2^logn over nprimes primes, into
+// *clusters; 0 means no cluster of P such blocks can be scheduled. Returns
+// a cudaError_t.
+extern "C" int tfhe_cmux_max_active_clusters(int logn, int logc, int nprimes, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = k3_config(cfg, attr, 1, logn, logc, nprimes, nullptr);
+  if (err != (int)cudaSuccess) return err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, k3_cmux, &cfg);
+}
+
 // acc_in/acc_out (batch, 2, N) u64; exps (steps, batch) int32 exponents in
 // [0, 2N); bsk (steps, 2, 2, P, 2, N) u32 Shoup pairs; psi_pow (P, 2, 2N) u32
 // psi^t and Shoup companions; tw, pp the NTT tables; gs the garner_u32
@@ -176,26 +214,11 @@ extern "C" int tfhe_cmux_steps(const void* acc_in, void* acc_out, const void* ex
                                const void* bsk, const void* psi_pow, const void* tw,
                                const void* pp, const void* gs, int batch, int steps, int logn,
                                int logc, int nprimes, int base_log, int shift, void* stream) {
-  const int n = 1 << logn;
-  if (nprimes < 1 || nprimes > 4) return (int)cudaErrorInvalidValue;
-  // padded residue rows, omega powers, twiddle rows, the step's psi factors
-  const size_t words = (size_t)(2 * n + (2 * n >> 5)) + (n >> logc) + 4 * n + 2 * (1 << logc);
-  const size_t smem = words * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(k3_cmux, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nprimes;  // the P blocks of one ciphertext
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nprimes * batch));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, k3_cmux, (const int64_t*)acc_in, (int64_t*)acc_out,
+  int cerr = k3_config(cfg, attr, batch, logn, logc, nprimes, stream);
+  if (cerr != (int)cudaSuccess) return cerr;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, k3_cmux, (const int64_t*)acc_in, (int64_t*)acc_out,
                            (const int32_t*)exps, (const uint32_t*)bsk, (const uint32_t*)psi_pow,
                            (const uint32_t*)tw, (const uint32_t*)pp, (const uint32_t*)gs, batch,
                            steps, logn, logc, nprimes, base_log, shift);

@@ -189,11 +189,12 @@ __global__ void __launch_bounds__(kThreads, G == 4 ? 3 : 4)
   }
 }
 
+// The launch configuration of k4_group_steps<G> at N = 2^logn over nprimes
+// primes: one block per (ciphertext, prime), the P blocks of a ciphertext in
+// one cluster, the dynamic shared memory allowed. Returns a cudaError_t.
 template <int G>
-static int launch(const void* acc_in, void* acc_out, const void* a, const void* bsk,
-                  const void* psi_pow, const void* tw, const void* pp, const void* gs, int batch,
-                  int groups, int logn, int logc, int nprimes, int base_log, int shift,
-                  void* stream) {
+static int k4_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], int batch, int logn,
+                     int logc, int nprimes, void* stream) {
   const int n = 1 << logn;
   // padded residue rows, omega powers, twiddle rows, the group's psi factors
   const size_t words = (size_t)(2 * n + (2 * n >> 5)) + (n >> logc) + 4 * n + 2 * G * (1 << logc);
@@ -201,24 +202,59 @@ static int launch(const void* acc_in, void* acc_out, const void* a, const void* 
   cudaError_t err = cudaFuncSetAttribute(k4_group_steps<G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = nprimes;  // the P blocks of one ciphertext
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
+  cfg = {};
   cfg.gridDim = dim3((unsigned)(nprimes * batch));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, k4_group_steps<G>, (const int64_t*)acc_in, (int64_t*)acc_out,
+  return (int)cudaSuccess;
+}
+
+template <int G>
+static int launch(const void* acc_in, void* acc_out, const void* a, const void* bsk,
+                  const void* psi_pow, const void* tw, const void* pp, const void* gs, int batch,
+                  int groups, int logn, int logc, int nprimes, int base_log, int shift,
+                  void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int cerr = k4_config<G>(cfg, attr, batch, logn, logc, nprimes, stream);
+  if (cerr != (int)cudaSuccess) return cerr;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, k4_group_steps<G>, (const int64_t*)acc_in, (int64_t*)acc_out,
                            (const int32_t*)a, (const uint32_t*)bsk, (const uint32_t*)psi_pow,
                            (const uint32_t*)tw, (const uint32_t*)pp, (const uint32_t*)gs, batch,
                            groups, logn, logc, nprimes, base_log, shift);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int G>
+static int max_active_clusters(int logn, int logc, int nprimes, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int err = k4_config<G>(cfg, attr, 1, logn, logc, nprimes, nullptr);
+  if (err != (int)cudaSuccess) return err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, k4_group_steps<G>, &cfg);
+}
+
+// How many clusters of k4_group_steps<group_size> can be resident on the
+// device at once (cudaOccupancyMaxActiveClusters) at N = 2^logn over
+// nprimes primes, into *clusters; 0 means no cluster of P such blocks can
+// be scheduled. Returns a cudaError_t.
+extern "C" int tfhe_multibit_max_active_clusters(int group_size, int logn, int logc, int nprimes,
+                                                 int* clusters) {
+  if (nprimes < 1 || nprimes > 4) return (int)cudaErrorInvalidValue;
+  switch (group_size) {
+    case 2: return max_active_clusters<2>(logn, logc, nprimes, clusters);
+    case 3: return max_active_clusters<3>(logn, logc, nprimes, clusters);
+    case 4: return max_active_clusters<4>(logn, logc, nprimes, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // acc_in/acc_out (batch, 2, N) u64; a (groups * g, batch) int32 exponents in

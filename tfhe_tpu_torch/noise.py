@@ -23,12 +23,13 @@ from tfhe_tpu_torch.params import (
 Q = 2.0**Q_BITS
 
 def _crt_prod() -> int:
-    """The folded CRT engine's modulus product (ops/folded_ntt
-    FOLDED_PRIMES): noise terms that depend on the PKSK's modulus-switched
-    storage need the engine's max-product-bits."""
-    from tfhe_tpu_torch.ops.folded_ntt import FOLDED_PRIMES
+    """The folded CRT engine's modulus product over the process's prime
+    set (ops/folded_ntt.default_primes()): noise terms that depend on the
+    PKSK's modulus-switched storage need the max-product-bits of the
+    engine that runs."""
+    from tfhe_tpu_torch.ops.folded_ntt import default_primes
 
-    return math.prod(FOLDED_PRIMES)
+    return math.prod(default_primes())
 
 
 def keyswitch_variance(

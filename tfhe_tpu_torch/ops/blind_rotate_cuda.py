@@ -37,7 +37,28 @@ def _lib():
     lib = _build.load("blind_rotate")
     lib.tfhe_cmux_steps.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.tfhe_cmux_steps.restype = _I
+    lib.tfhe_cmux_max_active_clusters.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.tfhe_cmux_max_active_clusters.restype = _I
     return lib
+
+
+def max_active_clusters(engine) -> int:
+    """How many clusters of P K3 blocks the card holds at once at the
+    engine's N (cudaOccupancyMaxActiveClusters), asked once per engine
+    before its first launch. Raises when it is 0: such a cluster cannot be
+    scheduled, and no launch falls back to the plain version."""
+    clusters = getattr(engine, "_k3_clusters", None)
+    if clusters is None:
+        logn, logc = ntt_cuda._dims(engine)
+        out = _I(0)
+        _build.check(
+            _lib().tfhe_cmux_max_active_clusters(logn, logc, engine.n_primes, ctypes.byref(out)),
+            "tfhe_cmux_max_active_clusters",
+        )
+        if out.value == 0:
+            raise RuntimeError(f"K3: no cluster of {engine.n_primes} blocks fits on the card at N = {engine.n}")
+        clusters = engine._k3_clusters = out.value
+    return clusters
 
 
 def monomial_ntt_table(engine) -> torch.Tensor:
@@ -96,6 +117,7 @@ def cmux_steps(acc, exps, bsk_ntt, rot_table, engine, base_log: int, shift: int)
     if b == 0 or steps == 0:
         out.copy_(acc)
         return out
+    max_active_clusters(engine)
     tw, pp = ntt_cuda.kernel_tables(engine)
     gs = ntt_cuda.garner_consts_shoup(engine)
     logn, logc = ntt_cuda._dims(engine)

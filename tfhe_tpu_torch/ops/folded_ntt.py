@@ -1,4 +1,4 @@
-"""Folded four-step negacyclic NTT over a 3-prime CRT: exact polymul mod 2^64.
+"""Folded four-step negacyclic NTT over a 3- or 4-prime CRT: exact polymul mod 2^64.
 
 Counterpart of tfhe_tpu/ops/folded_ntt.py. The plain PyTorch engine here
 mirrors the JAX math step by step: with the index split i = r + R*c,
@@ -25,62 +25,42 @@ on a CPU tensor they run the plain transforms below.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
 from tfhe_tpu_torch import _device, _u64
 from tfhe_tpu_torch._u64 import MASK32, condsub, mulhi_u32, shoup_mulmod
+from tfhe_tpu_torch.ops.polynomial import _is_prime, _primitive_root
 
 # ascending, all < 2^30, 2^13 | p-1 (negacyclic N up to 4096):
 # 469762049 = 7*2^26+1, 754974721 = 45*2^24+1, 998244353 = 119*2^23+1
 FOLDED_PRIMES = (469762049, 754974721, 998244353)
 
+# four ~2^24 primes (ascending, k*2^13+1): centered residues |x| <= p/2
+# keep three balanced base-256 digit planes, and the CRT range grows from
+# 2^88.2 to 2^95.9, so key storage keeps more bits.
+FOLDED_PRIMES_4 = (16384001, 16465921, 16490497, 16515073)
+
+
+def _resolve_default_primes() -> tuple:
+    return FOLDED_PRIMES_4 if os.environ.get("TFHE_TPU_PRIMES", "3") == "4" else FOLDED_PRIMES
+
+
+# The process-level prime set, read once at import from TFHE_TPU_PRIMES
+# ("4" selects FOLDED_PRIMES_4), as the JAX package does: numerics never
+# change between two calls in one process. Pass `primes=` to the engine
+# for the other set.
+DEFAULT_PRIMES = _resolve_default_primes()
+
+
+def default_primes() -> tuple:
+    """The process-default engine prime set (see DEFAULT_PRIMES)."""
+    return DEFAULT_PRIMES
+
+
 _F = torch.float64  # digit-plane matmuls: exact for sums below 2^53
-
-
-def _is_prime(n: int) -> bool:
-    """Deterministic Miller-Rabin for n < 2^64."""
-    if n < 2:
-        return False
-    for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        if n % p == 0:
-            return n == p
-    d, s = n - 1, 0
-    while d % 2 == 0:
-        d //= 2
-        s += 1
-    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        x = pow(a, d, n)
-        if x in (1, n - 1):
-            continue
-        for _ in range(s - 1):
-            x = x * x % n
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
-
-
-def _primitive_root(p: int) -> int:
-    """Smallest primitive root of Z_p^* (p prime)."""
-    factors = []
-    phi = p - 1
-    m = phi
-    f = 2
-    while f * f <= m:
-        if m % f == 0:
-            factors.append(f)
-            while m % f == 0:
-                m //= f
-        f += 1
-    if m > 1:
-        factors.append(m)
-    for g in range(2, p):
-        if all(pow(g, phi // q, p) != 1 for q in factors):
-            return g
-    raise RuntimeError("no primitive root")
 
 
 class _PrimeCtx:
@@ -141,8 +121,9 @@ def _split_signed(x: torch.Tensor, nplanes: int) -> torch.Tensor:
     return torch.stack(ds, dim=-1).to(_F)
 
 
-def _balanced_digits_host(m: np.ndarray, p: int, nplanes: int) -> np.ndarray:
-    """Matrix entries in [0, p) -> centered, then balanced base-256 digits."""
+def _balanced_digits_host(m: np.ndarray, p: int, nplanes: int = 4) -> np.ndarray:
+    """Matrix entries in [0, p) -> centered, then balanced base-256 digits
+    with |d| <= 128 (nplanes=3 needs p/2 <= 8290176, the ~2^24 primes)."""
     v = m.astype(np.int64)
     v = np.where(v > p // 2, v - p, v)
     out = np.empty(m.shape + (nplanes,), dtype=np.int64)
@@ -333,15 +314,23 @@ class GarnerConsts:
 
 
 class FoldedCrtEngine:
-    """Exact negacyclic polymul mod 2^64 over FOLDED_PRIMES on one device."""
+    """Exact negacyclic polymul mod 2^64 over a CRT prime set on one
+    device: 2 to 4 ascending primes, default_primes() unless `primes` is
+    given (FOLDED_PRIMES, or FOLDED_PRIMES_4 with three digit planes)."""
 
-    def __init__(self, n: int, device: torch.device):
+    def __init__(self, n: int, device: torch.device, primes=None):
+        if primes is None:
+            primes = default_primes()
         assert n & (n - 1) == 0
+        assert 2 <= len(primes) <= 4
+        # ascending: the Garner's lazy Horner bound needs v_j < p_j < p_i (j < i)
+        assert tuple(primes) == tuple(sorted(primes))
         self.n = n
         self.device = device
-        self.primes = FOLDED_PRIMES
+        self.primes = tuple(primes)
         self.n_primes = len(self.primes)
         self.ntts = [FoldedNtt(p, n, device) for p in self.primes]
+        assert len({ntt.na for ntt in self.ntts}) == 1, "uniform planes"
         prod = 1
         for p in self.primes:
             prod *= p
@@ -553,13 +542,14 @@ class FoldedCrtEngine:
 
 
 @functools.lru_cache(maxsize=None)
-def _engine_cached(n: int, device: str) -> FoldedCrtEngine:
-    return FoldedCrtEngine(n, torch.device(device))
+def _engine_cached(n: int, device: str, primes: tuple) -> FoldedCrtEngine:
+    return FoldedCrtEngine(n, torch.device(device), primes)
 
 
-def get_folded_engine(n: int, device=None) -> FoldedCrtEngine:
-    """The engine for polynomial size n on `device` (default "cuda")."""
+def get_folded_engine(n: int, device=None, primes=None) -> FoldedCrtEngine:
+    """The engine for polynomial size n on `device` (default "cuda") over
+    `primes` (default default_primes(), resolved before the cache key)."""
     dev = _device.resolve(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
-    return _engine_cached(n, str(dev))
+    return _engine_cached(n, str(dev), tuple(default_primes() if primes is None else primes))

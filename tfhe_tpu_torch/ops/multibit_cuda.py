@@ -42,7 +42,31 @@ def _lib():
     lib = _build.load("multibit")
     lib.tfhe_multibit_group_steps.argtypes = [_P] * 8 + [_I] * 8 + [_P]
     lib.tfhe_multibit_group_steps.restype = _I
+    lib.tfhe_multibit_max_active_clusters.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.tfhe_multibit_max_active_clusters.restype = _I
     return lib
+
+
+def max_active_clusters(engine, group_size: int) -> int:
+    """How many clusters of P K4 blocks for group size g the card holds at
+    once at the engine's N (cudaOccupancyMaxActiveClusters), asked once per
+    (engine, g) before the first launch. Raises when it is 0: such a
+    cluster cannot be scheduled, and no launch falls back to the plain
+    version."""
+    known = engine.__dict__.setdefault("_k4_clusters", {})
+    if group_size not in known:
+        logn, logc = ntt_cuda._dims(engine)
+        out = _I(0)
+        _build.check(
+            _lib().tfhe_multibit_max_active_clusters(group_size, logn, logc, engine.n_primes, ctypes.byref(out)),
+            "tfhe_multibit_max_active_clusters",
+        )
+        if out.value == 0:
+            raise RuntimeError(
+                f"K4: no cluster of {engine.n_primes} blocks fits on the card at N = {engine.n}, g = {group_size}"
+            )
+        known[group_size] = out.value
+    return known[group_size]
 
 
 def multibit_bsk_to_step_layout(bsk_ntt: torch.Tensor):
@@ -94,6 +118,7 @@ def group_steps(acc, a, bsk_ntt, table, engine, base_log: int, shift: int, group
     if b == 0 or groups == 0:
         out.copy_(acc)
         return out
+    max_active_clusters(engine, group_size)
     tw, pp = ntt_cuda.kernel_tables(engine)
     gs = garner_consts_shoup(engine)
     logn, logc = ntt_cuda._dims(engine)

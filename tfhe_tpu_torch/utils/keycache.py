@@ -40,8 +40,8 @@ KEY_CACHE_MAX = 8 * 1024 * 1024 * 1024
 def default_dir() -> str:
     """TFHE_TPU_KEY_CACHE_DIR, else `.cache/torch_keys` in the checkout when
     it is writable, else a directory under the process's temp dir. Not the
-    JAX package's `.cache/keys`: the two packages draw different keys from
-    one seed under the same file name."""
+    JAX package's `.cache/keys`: the two packages draw the same keys from
+    one seed, but each writes its own file format."""
     env = os.environ.get("TFHE_TPU_KEY_CACHE_DIR")
     if env:
         return env
@@ -63,11 +63,15 @@ def _effective_group(params, multibit_group: int | None) -> int:
 
 
 def cache_path(params, seed: int, multibit_group: int | None, cache_dir: str | None = None) -> str:
-    """The JAX package's file name for the same keys (the port's engine
-    always has the 3-prime set, which that name leaves untagged)."""
+    """The JAX package's file name for the same keys. The NTT-domain key
+    material depends on the process's CRT prime set, so a 4-prime process
+    (TFHE_TPU_PRIMES=4) tags its files `_p4` and never loads 3-prime keys."""
+    from tfhe_tpu_torch.ops.folded_ntt import DEFAULT_PRIMES
+
     d = cache_dir or default_dir()
     g = _effective_group(params, multibit_group)
-    return os.path.join(d, f"{params.hash[:16]}_s{seed}_g{g}.tfhekeys")
+    ptag = f"_p{len(DEFAULT_PRIMES)}" if len(DEFAULT_PRIMES) != 3 else ""
+    return os.path.join(d, f"{params.hash[:16]}_s{seed}_g{g}{ptag}.tfhekeys")
 
 
 def save_keys(path: str, ck, sk) -> None:
