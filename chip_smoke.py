@@ -24,6 +24,24 @@ apply_lut on 512 ciphertexts (K3) and the GROUP_3 keygen with apply_lut on
 512 (K4), decrypted, with the keys' msb (55) and bytes (`four_prime:`
 lines); the parent prints each P = 4 kernel time beside the same kernel's
 P = 3 time of this run, and the four P = 4 entries join the kernels line.
+Next it runs itself with --parallel in a child process (`parallel:`
+lines; the path is counted as `parallel`): parallel/ on torch.distributed
+at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128, batch 64. (a)
+make_sharded_pbs_step on make_mesh(1, 1), a world of one rank under NCCL
+in the child, counts reset before its first run: exactly 880 K1 and 880
+K2, no K3/K4; bit-equal to a single-process loop of external products
+over the same key, decrypting as apply_lut (K3) does; K1 at the step's
+(128, 2048) digits and K2 at its (128, 3, 2048) all-reduced residues
+against their plain versions, timed. Then one spawned world of 2 ranks
+on the one card under gloo (NCCL refuses two ranks on one device; a
+correctness run, not a scaling figure), laid out as one rank a host: (b)
+the step at model width 2, bit-equal to (a); (c) make_sharded_ntt at
+N = 2048 and 4096, equal mod p to K1's forward_u64, and its round trip;
+(d) make_key_sharded_blind_rotate bit-equal to (a)'s rotation; (e)
+make_multihost_pbs_step with no byte crossing a host, and the step on the
+cross-host model mesh, whose all-reduces cross. It prints ms per sharded
+batch at world 1 and 2, collective bytes and ms per step, K1/K2 launches
+and the collectives gloo staged through host memory.
 Then it drives, through the entry points a user calls, at full width:
 
 1. the classic shortint path at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
@@ -131,6 +149,8 @@ ML_BATCH = 32  # images of the full-FHE classifier, rows of the compiled MLP's f
 MERGE_ROWS = 32  # rows of each side of the encrypted dataframe merge
 RNG_VALUES = 1 << 20  # values of each sampler in the card-vs-CPU RNG check
 P4_PLAIN_CT = 8  # ciphertexts of the 4-prime paths held against K3's and K4's plain versions
+PAR_BATCH = 64  # ciphertexts of the parallel path's sharded PBS batch
+PAR_WORLD = 2  # ranks of the parallel path's gloo world on the one card
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # non-tensor-core 32-bit rate, used here as the peak of the kernels' u32
 # integer instructions.
@@ -1170,23 +1190,24 @@ def rng_phase(dev) -> None:
           f"{ms:.4f} ms; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def run_four_prime() -> dict:
-    """Run this script with --four-prime in a child process under
-    TFHE_TPU_PRIMES=4, echo its lines and return the result on its last
-    line. The child reuses the kernels built here (P is a runtime argument)."""
+def run_child(flag: str, env: dict | None = None) -> dict:
+    """Run this script with `flag` in a child process, echo its lines and
+    return the result on its last line (one JSON object keyed by the flag's
+    name). The child reuses the kernels built here."""
+    key = flag.lstrip("-").replace("-", "_")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--four-prime"],
-        env=dict(os.environ, TFHE_TPU_PRIMES="4"), capture_output=True, text=True, timeout=900,
+        [sys.executable, os.path.abspath(__file__), flag],
+        env=dict(os.environ, **(env or {})), capture_output=True, text=True, timeout=900,
     )
     lines = proc.stdout.strip().splitlines()
     for ln in lines[:-1]:
         print(ln, flush=True)
     if proc.returncode != 0 or not lines:
-        raise RuntimeError(f"the 4-prime child failed (exit {proc.returncode}): {proc.stderr[-4000:]}")
-    res = json.loads(lines[-1])["four_prime"]
+        raise RuntimeError(f"the {flag} child failed (exit {proc.returncode}): {proc.stderr[-6000:]}")
+    res = json.loads(lines[-1])[key]
     res["wall_s"] = time.perf_counter() - t0
-    print(f"four_prime: child process {res['wall_s']:.1f} s", flush=True)
+    print(f"{key}: child process {res['wall_s']:.1f} s", flush=True)
     return res
 
 
@@ -1394,6 +1415,240 @@ def four_prime_main() -> int:
     return 0
 
 
+def coll_summary(stats) -> str:
+    """Collectives of one run, from multihost.collective_stats."""
+    return "; ".join(
+        f"{s['op']} {s['bytes']} B x {s['count']} over ranks {s['replica_groups'][0]}"
+        + (" (staged through host memory)" if s["staged"] else "") + (" crossing hosts" if s["crosses_host"] else "")
+        for s in stats)
+
+
+def parallel_main() -> int:
+    """The parallel path (run by main() in a child process): the port's
+    parallel/ on torch.distributed at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128,
+    batch PAR_BATCH. (a) make_sharded_pbs_step on make_mesh(1, 1), a world
+    of one rank under NCCL in this process, counts reset before its first
+    run: K1 and K2 once per rotation step; bit-equal to the single-process
+    loop of external products (bootstrap.blind_rotate's loop branch,
+    driven here) and decrypting as apply_lut (K3) does; K1 and K2 at the
+    step's shapes against their plain versions. Then one spawned world of
+    PAR_WORLD ranks on the one card under gloo (NCCL refuses two ranks on
+    a device), laid out as one rank a host: (b) the step at model width 2,
+    bit-equal to (a); (c) make_sharded_ntt at N = 2048 and 4096 equal mod p
+    to K1's forward_u64, and its round trip; (d) make_key_sharded_blind_rotate
+    bit-equal to (a)'s rotation; (e) make_multihost_pbs_step on 2 hosts x
+    model 1 (no collective crosses a host) and the step on the cross-host
+    model mesh (its all-reduces cross). The last line is one JSON object."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --parallel: no CUDA device", file=sys.stderr)
+        return 2
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tfhe_tpu_torch import _build, _u64
+    from tfhe_tpu_torch import params as tp
+    from tfhe_tpu_torch.core.ggsw import contract_residues, external_product
+    from tfhe_tpu_torch.core.lwe import keyswitch, sample_extract
+    from tfhe_tpu_torch.models import shortint as si
+    from tfhe_tpu_torch.ops import blind_rotate_cuda as brc
+    from tfhe_tpu_torch.ops import multibit_cuda as mbc
+    from tfhe_tpu_torch.ops import ntt_cuda
+    from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
+    from tfhe_tpu_torch.parallel import launch as pl
+    from tfhe_tpu_torch.parallel import multihost as mh
+    from tfhe_tpu_torch.parallel.mesh import make_mesh
+    from tfhe_tpu_torch.parallel.sharded import make_sharded_pbs_step, shard_inputs
+    from tfhe_tpu_torch.rng import FheRng
+    from tfhe_tpu_torch.torus import mod_switch, negacyclic_monomial_rotate, signed_decompose
+
+    PARAMS = tp.PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
+    dev = torch.device("cuda")
+    build_s = _build.build_all()
+    wrappers = {"K1": ntt_cuda.forward, "K2": ntt_cuda.inverse, "K3": brc.cmux_steps, "K4": mbc.group_steps}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in wrappers.items()}
+
+    n, steps, batch = PARAMS.polynomial_size, PARAMS.lwe_dimension, PAR_BATCH
+    eng = get_folded_engine(n, dev)
+    n_pr = eng.n_primes
+    rand_i32, rand_u64, _, mod_err, exact_err = random_inputs(eng, SEED + 5)
+    t0 = time.perf_counter()
+    ck, sk = si.keygen(PARAMS, seed=SEED + 20, device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    vals = torch.arange(batch, device=dev) % PARAMS.message_modulus
+    c = si.encrypt(ck, vals, FheRng(SEED + 21, "cuda"))
+    space = PARAMS.message_modulus * PARAMS.carry_modulus
+    table = np.asarray([(3 * v + 1) % PARAMS.message_modulus for v in range(space)], dtype=np.uint64)
+    lut = si.generate_lut(PARAMS, table, "cuda")
+    want = torch.as_tensor(table.astype(np.int64), device=dev)[vals]
+    d_rows = (PARAMS.glwe_dimension + 1) * PARAMS.pbs.level
+    print(f"parallel ({PARAMS.name}, n={steps}, N={n}, PBS {PARAMS.pbs.level} / {PARAMS.pbs.base_log} so D = {d_rows}, "
+          f"KS {PARAMS.ks.level} / {PARAMS.ks.base_log} with n_in = {sk.ksk.n_in}): build_s {build_s:.3f} (reused), "
+          f"keygen_s {keygen_s:.3f}, batch {batch}", flush=True)
+
+    # -- (a) world 1 under NCCL, in this process -----------------------------------
+    mh.initialize(f"127.0.0.1:{pl.free_port()}", 1, 0, "nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        c_loc, bsk_loc, ksk_loc = shard_inputs(mesh, c.ct, sk.bsk.bsk_ntt, sk.ksk.ksk)
+        step = make_sharded_pbs_step(mesh, eng, PARAMS.ks, PARAMS.pbs, bsk_shift=sk.bsk.shift)
+        backend = dist.get_backend()
+        reset_counts()
+        mesh.recorder.reset()
+        out1 = step(c_loc, lut, bsk_loc, ksk_loc)
+        counts = read_counts()
+        stats1 = mh.collective_stats(mesh)
+        ms1 = host_ms(lambda: step(c_loc, lut, bsk_loc, ksk_loc))
+        mesh.recorder.reset()
+        mesh.recorder.timed = True
+        rec_ms1 = host_ms(lambda: step(c_loc, lut, bsk_loc, ksk_loc))
+        timed1 = mh.collective_stats(mesh)
+        mesh.recorder.timed = False
+    finally:
+        dist.destroy_process_group()
+    check(backend == "nccl", f"(a) runs under NCCL ({backend})")
+    check(counts == {"K1": steps, "K2": steps, "K3": 0, "K4": 0},
+          f"parallel: K1 and K2 once per rotation step ({steps}), K3/K4 never, in one sharded step ({counts})")
+    # the single-process loop of external products (bootstrap.blind_rotate's loop branch)
+    small = keyswitch(c.ct, sk.ksk)
+    ms_ = mod_switch(small, int(math.log2(2 * n)))
+    a_steps = ms_[..., :-1].movedim(-1, 0)
+    acc0 = negacyclic_monomial_rotate(lut, (2 * n - ms_[..., -1])[..., None]).expand(batch, 2, n)
+    acc = acc0
+    for j in range(steps):
+        rot = negacyclic_monomial_rotate(acc, a_steps[j][..., None])
+        acc = acc + external_product(sk.bsk.bsk_ntt[j], rot - acc, PARAMS.pbs, eng, shift=sk.bsk.shift)
+    ref_acc = acc
+    check(torch.equal(out1, sample_extract(ref_acc, 0)), "(a) the sharded step equals the loop of external products")
+    dec1 = si.decrypt(ck, si.Ciphertext(ct=out1, params=PARAMS, degree=3, noise_level=1))
+    dec_lut = si.decrypt(ck, si.apply_lut(sk, c, lut, 3))
+    check(bool((dec1 == want).all()) and bool((dec_lut == dec1).all()),
+          "(a) the sharded step decrypts to the LUT's values, as apply_lut (K3) does")
+
+    # K1 and K2 at the step's shapes, on its first step's inputs
+    rot0 = negacyclic_monomial_rotate(acc0, a_steps[0][..., None])
+    digits = signed_decompose(rot0 - acc0, PARAMS.pbs).movedim(-1, -2).reshape(batch * d_rows, n)
+    fd = eng.forward_small(digits)
+    k1_err = mod_err(fd, eng.forward_small_plain(digits))
+    res = eng.condsub_domain(contract_residues(sk.bsk.bsk_ntt[0], fd.reshape(batch, d_rows, n_pr, n), eng))
+    k2_err = exact_err(ntt_cuda.inverse(eng, res), eng.inverse_plain(res))
+    check(k1_err == 0 and k2_err == 0, f"K1/K2 vs plain at the sharded step's shapes (err {k1_err}, {k2_err})")
+    rows1, rows2 = batch * d_rows, batch * (PARAMS.glwe_dimension + 1)
+    k1 = dict(**kernel_ms(lambda: eng.forward_small(digits), 20, "k1_forward"),
+              plain_ms=cuda_ms(lambda: eng.forward_small_plain(digits), 2),
+              shape=f"({rows1}, {n}) int32 -> ({rows1}, {n_pr}, {n})")
+    k1["bound_ms"], k1["bound_by"] = k1_bound(rows1, n_pr, n, 4)
+    k2 = dict(**kernel_ms(lambda: ntt_cuda.inverse(eng, res), 20, "k2_inverse"),
+              plain_ms=cuda_ms(lambda: eng.inverse_plain(res), 2), shape=f"({rows2}, {n_pr}, {n})")
+    k2["bound_ms"], k2["bound_by"] = k2_bound(rows2, n_pr, n)
+    ar1 = [s for s in timed1 if s["count"] == steps]
+    coll_ms1 = sum(s["seconds"] for s in timed1) * 1e3
+    print(f"parallel: (a) world 1 under {backend}, make_mesh(1, 1): {ms1:.3f} ms per sharded PBS "
+          f"batch of {batch} ({batch / ms1 * 1e3:.1f} PBS/s); bit-equal to the loop of external products, "
+          f"decrypts as apply_lut; launches {counts}; collectives {coll_summary(stats1)}; timed run {rec_ms1:.3f} ms, "
+          f"{coll_ms1:.3f} ms in collectives ({coll_ms1 / steps:.4f} ms per step, {ar1[0]['bytes'] if ar1 else 0} B "
+          f"per step); K1 {k1['ms']:.4f} ms at {k1['shape']} (bound {k1['bound_ms']:.4f}, plain {k1['plain_ms']:.4f}), "
+          f"K2 {k2['ms']:.4f} ms at {k2['shape']} (bound {k2['bound_ms']:.4f}, plain {k2['plain_ms']:.4f}), "
+          f"{k1['timed_by']}", flush=True)
+
+    # -- (b)-(e): one world of PAR_WORLD ranks on this card under gloo --------------
+    gen = np.random.default_rng(SEED)
+    xs = {}
+    for nn in (2048, 4096):
+        x = gen.integers(0, 2**64, nn, dtype=np.uint64)
+        x[:4] = [0, 2**64 - 1, 2**63, 2**63 - 1]
+        xs[nn] = x
+    cts_np, small_np = _u64.u64_to_numpy(c.ct), _u64.u64_to_numpy(small)
+    common = dict(params=PARAMS, seed=SEED + 20, cts=cts_np, lut_table=table)
+    jobs = [
+        ("pbs", dict(common, n_data=1, n_model=PAR_WORLD, timed_runs=1)),
+        ("ntt", dict(n_poly=2048, x=xs[2048])),
+        ("ntt", dict(n_poly=4096, x=xs[4096])),
+        ("rotate", dict(params=PARAMS, seed=SEED + 20, small_cts=small_np, lut_table=table)),
+        ("pbs", dict(common, layout="host", n_model=1)),
+        ("pbs", dict(common, layout="cross")),
+    ]
+    t0 = time.perf_counter()
+    ranks = pl.launch(pl.run_jobs, PAR_WORLD, (jobs,), backend="gloo", ranks_per_host=1, timeout=600)
+    world_s = time.perf_counter() - t0
+    out1_np = _u64.u64_to_numpy(out1)
+
+    def gathered(j):
+        full = np.zeros_like(out1_np)
+        for r in ranks:
+            a, b = r[j]["rows"]
+            full[a:b] = r[j]["out"]
+        return full
+
+    b_res = ranks[0][0]
+    check(np.array_equal(gathered(0), out1_np), "(b) world 2, model width 2, bit-equal to (a)")
+    ntt_err = {}
+    for j, nn in ((1, 2048), (2, 4096)):
+        e_ = get_folded_engine(nn, dev)
+        f_ref = e_.forward_u64(_u64.u64_from_numpy(xs[nn]).to(dev)).to(torch.int64).cpu().numpy()
+        f = np.concatenate([r[j]["f"] for r in sorted(ranks, key=lambda r: r[j]["coord"])], axis=1)
+        back = np.concatenate([r[j]["back"] for r in sorted(ranks, key=lambda r: r[j]["coord"])], axis=1)
+        ntt_err[nn] = (max(int(np.abs(f[i] % p - f_ref[i] % p).max()) for i, p in enumerate(e_.primes)),
+                       max(int(np.abs(back[i] - (xs[nn] % np.uint64(p)).astype(np.int64)).max())
+                           for i, p in enumerate(e_.primes)))
+    check(all(v == (0, 0) for v in ntt_err.values()),
+          f"(c) the sharded NTT equals K1's forward_u64 mod p and round-trips (err {ntt_err})")
+    ref_acc_np = _u64.u64_to_numpy(ref_acc)
+    check(all(np.array_equal(r[3]["acc"], ref_acc_np) for r in ranks), "(d) the key-sharded rotation equals (a)'s")
+    check(np.array_equal(gathered(4), out1_np) and np.array_equal(gathered(5), out1_np),
+          "(e) the multihost step and the cross-host model mesh's step equal (a)")
+    cross_host = {name: sum(s["bytes"] * s["count"] for r in ranks for s in r[j]["stats"] if s["crosses_host"])
+                  for name, j in (("host", 4), ("cross", 5))}
+    check(cross_host["host"] == 0, f"(e) no collective of the multihost step crosses a host ({cross_host})")
+    check(cross_host["cross"] > 0, f"(e) the cross-host model mesh's all-reduces cross hosts ({cross_host})")
+    staged = sorted({s["op"] for r in ranks for j in range(len(jobs)) for s in r[j]["stats"] if s["staged"]})
+    timed_b = b_res["timed_stats"]
+    coll_ms2 = sum(s["seconds"] for s in timed_b) * 1e3
+    ar2 = [s for s in timed_b if s["count"] == steps]
+    per_rank = [r[0]["launches"] for r in ranks]
+    print(f"parallel: (b)-(e) one world of {PAR_WORLD} ranks on this card under gloo, {world_s:.1f} s with spawn and "
+          f"keygen (a correctness run: two ranks share one card, so its times are no scaling figure)", flush=True)
+    print(f"parallel: (b) make_mesh(1, {PAR_WORLD}): the D = {d_rows} digit rows split "
+          f"{' + '.join([str(d_rows // PAR_WORLD)] * PAR_WORLD)}, the KSK's n_in = {sk.ksk.n_in} rows "
+          f"{' + '.join([str(sk.ksk.n_in // PAR_WORLD)] * PAR_WORLD)}; bit-equal to (a); {b_res['ms'][0]:.3f} ms per sharded PBS batch on rank 0; "
+          f"collectives {coll_summary(b_res['stats'])}; timed run {b_res['recorder_timed_ms']:.3f} ms, "
+          f"{coll_ms2:.3f} ms in collectives ({coll_ms2 / steps:.4f} ms per step, {ar2[0]['bytes'] if ar2 else 0} B per "
+          f"step); launches per rank {per_rank}", flush=True)
+    print(f"parallel: (c) make_sharded_ntt over {PAR_WORLD} ranks at N = 2048 and 4096: equal mod p to K1's "
+          f"forward_u64 and round-trips (err {ntt_err}); collectives "
+          + " | ".join(coll_summary(ranks[0][j]["stats"]) for j in (1, 2)), flush=True)
+    print(f"parallel: (d) make_key_sharded_blind_rotate over {PAR_WORLD} ranks ({steps // PAR_WORLD} steps each): "
+          f"bit-equal to (a)'s rotation on every rank; launches per rank {[r[3]['launches'] for r in ranks]}; "
+          f"collectives {coll_summary(ranks[0][3]['stats'])}", flush=True)
+    print(f"parallel: (e) make_multihost_pbs_step on {ranks[0][4]['shape']} (one rank a host): bit-equal to (a), "
+          f"{cross_host['host']} bytes cross hosts ({coll_summary(ranks[0][4]['stats'])}); the cross-host model mesh "
+          f"{ranks[0][5]['shape']}: {cross_host['cross']} bytes cross hosts ({coll_summary(ranks[0][5]['stats'])})",
+          flush=True)
+    print(f"parallel: staged through host memory by gloo (CUDA tensors): {staged or 'none'}", flush=True)
+    print(f"parallel: summary: {ms1:.3f} ms per sharded PBS batch of {batch} at world 1 (NCCL), "
+          f"{b_res['ms'][0]:.3f} ms at world {PAR_WORLD} (gloo, one card shared: a correctness run); "
+          f"{ar1[0]['bytes'] if ar1 else 0} B all-reduced per rotation step, {coll_ms1 / steps:.4f} ms (world 1) and "
+          f"{coll_ms2 / steps:.4f} ms (world {PAR_WORLD}) per step in collectives; launches {counts} at world 1, "
+          f"{per_rank} per rank at world {PAR_WORLD}; staged through host memory: {staged or 'none'}", flush=True)
+    summary = dict(batch=batch, world1_ms=ms1, world2_ms=b_res["ms"], coll_ms_per_step_world1=coll_ms1 / steps,
+                   coll_ms_per_step_world2=coll_ms2 / steps, coll_bytes_per_step=ar1[0]["bytes"] if ar1 else 0,
+                   staged=staged, cross_host=cross_host, world_s=world_s, launches_per_rank=per_rank)
+    print(json.dumps({"parallel": dict(paths={"parallel": counts}, kernels={"K1": dict(k1, err=k1_err),
+                                                                          "K2": dict(k2, err=k2_err)},
+                                       summary=summary)}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1466,7 +1721,8 @@ def main() -> int:
 
     # -- the RNG on the card against the CPU, then the 4-prime child ------------
     rng_phase(dev)
-    p4 = run_four_prime()
+    p4 = run_child("--four-prime", {"TFHE_TPU_PRIMES": "4"})  # the 4-prime set is chosen per process
+    par = run_child("--parallel")  # the NCCL world of phase (a) lives and dies in the child
 
     # -- kernels vs plain ------------------------------------------------------
     # K1 on 512 random rows, nb=3 (|x| <= 2^23) and nb=4 (|x| < 2^31)
@@ -2037,25 +2293,32 @@ def main() -> int:
     paths.update(dep["paths"])
     kern["K4"]["max_abs_err"] = max(kern["K4"]["max_abs_err"], dep["k4_err"])
 
+    # -- path 11: parallel/ on torch.distributed (the --parallel child) ---------
+    paths.update(par["paths"])
+
+    def par_entry(key):
+        return {f: v for f, v in par["kernels"][key].items() if f != "err"}
+
     kern["K1"] = dict(
         name="ntt_forward", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:494", max_abs_err=max(e3, e4, k1_err, k1u_err, k1_loop_err,
                                                                    k1_bool_err, k1_pks_err, k1_pke_err,
                                                                    ml["ntt_err"]["K1"], dep["ntt_err"]["K1"],
+                                                                   par["kernels"]["K1"]["err"],
                                                                    *(v[0] for v in edge.values()),
                                                                    *(v[1] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k1_keygen, "pbs_loop": k1_loop, "boolean": k1_bool,
-                                      "matmul_pks": k1_pks}, **{
+                                      "matmul_pks": k1_pks, "parallel": par_entry("K1")}, **{
             f: k1_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
     )
     kern["K2"] = dict(
         name="ntt_inverse", route="cuda", source="tfhe_tpu_torch/csrc/ntt.cu",
         replaces="tfhe_tpu/ops/pallas_ntt.py:518",
         max_abs_err=max(k2_512, k2_err, k2_loop_err, k2_bool_err, k2_mask_err, k2_pke_err, ml["ntt_err"]["K2"],
-                        dep["ntt_err"]["K2"],
+                        dep["ntt_err"]["K2"], par["kernels"]["K2"]["err"],
                         *(v[2] for v in edge.values())),
         path="pbs_loop", ms_by_shape={"keygen": k2_keygen, "pbs_loop": k2_loop, "boolean": k2_bool,
-                                      "matmul_mask": k2_mask}, **{
+                                      "matmul_mask": k2_mask, "parallel": par_entry("K2")}, **{
             f: k2_loop[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "shape")}, library_ms=None,
     )
 
@@ -2102,4 +2365,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(four_prime_main() if sys.argv[1:] == ["--four-prime"] else main())
+    modes = {"--four-prime": four_prime_main, "--parallel": parallel_main}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -203,7 +203,9 @@ def test_package_imports_no_jax():
         "tfhe_tpu_torch.ml.tree, tfhe_tpu_torch.ml.deploy, tfhe_tpu_torch.ml.hybrid_server, "
         "tfhe_tpu_torch.ml.hybrid, tfhe_tpu_torch.ml.lora, tfhe_tpu_torch.ml.pandas, "
         "tfhe_tpu_torch.ml.p_error_search, tfhe_tpu_torch.utils.profiling, tfhe_tpu_torch.rng, "
-        "tfhe_tpu_torch.ops.polynomial, tfhe_tpu_torch.ops; "
+        "tfhe_tpu_torch.ops.polynomial, tfhe_tpu_torch.ops, tfhe_tpu_torch.parallel, tfhe_tpu_torch.parallel.mesh, "
+        "tfhe_tpu_torch.parallel.sharded, tfhe_tpu_torch.parallel.ntt_sharded, tfhe_tpu_torch.parallel.multihost, "
+        "tfhe_tpu_torch.parallel.launch; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn', 'pandas')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
