@@ -47,9 +47,17 @@ Then it drives, through the entry points a user calls, at full width:
 1. the classic shortint path at PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128
    (K1/K2 in keygen, K3 in every PBS): keygen, encrypt 512 values,
    apply_lut (identity and v -> 3v mod 4), one mul, decrypt and check;
+   then the JAX package's calls on the port (`surface:` line):
+   core.keyswitch + core.programmable_bootstrap, reached through the
+   package's re-exports, on 64 ciphertexts bit-equal to apply_lut's in one
+   K3 launch, and gen_public_key(ck, rng, 64) on the card, whose zero
+   encryptions and 64 public-key encryptions decrypt;
 2. the multi-bit path at PARAM_MULTI_BIT_GROUP_3_... (K4 in every PBS):
-   the same steps, then a GROUP_4 keygen with 64 ciphertexts through the
-   identity LUT;
+   the same steps, then multibit_blind_rotate(..., bsk.rot_table) with the
+   table by position, bit-equal to the default call on 64 ciphertexts
+   (two K4 launches; the surface checks run after each path's counts are
+   read, and the line gives the seconds they add, under 5), then a GROUP_4
+   keygen with 64 ciphertexts through the identity LUT;
 3. an encrypted ERC20 transfer at euint64 over the GROUP_3 key, batch 32
    (le, select against a trivial zero, add_sub), checked against numpy;
 4. the loop PBS at PARAM_MESSAGE_1_CARRY_1_KS_PBS_TUNIFORM_2M128 (k=2,
@@ -1077,7 +1085,7 @@ def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dic
         return res
 
     pbs = ri.multibit_programmable_bootstrap
-    ri.multibit_programmable_bootstrap = lambda ct, lut, bsk, engine: pbs(ct, lut, bsk, engine, k4_steps)
+    ri.multibit_programmable_bootstrap = lambda ct, lut, bsk, engine: pbs(ct, lut, bsk, engine, steps=k4_steps)
     ri._pbs.rows = 0
     try:
         before = read_counts()
@@ -1255,13 +1263,13 @@ def four_prime_main() -> int:
         return {k: w.launches for k, w in wrappers.items()}
 
     n = PARAMS.polynomial_size
-    eng = get_folded_engine(n, dev)
+    eng = get_folded_engine(n, device=dev)
     n_pr = eng.n_primes
     check(n_pr == 4 and eng.max_product_bits == 83, f"P = 4 engine at N = {n} ({n_pr} primes, {eng.max_product_bits} bits)")
     rand_i32, rand_u64, rand_key_rows, mod_err, exact_err = random_inputs(eng, SEED + 4)
     err = {k: [] for k in wrappers}
     clusters = {"K3": brc.max_active_clusters(eng), "K4 g=3": mbc.max_active_clusters(eng, 3)}
-    eng3 = get_folded_engine(n, dev, primes=FOLDED_PRIMES)
+    eng3 = get_folded_engine(n, primes=FOLDED_PRIMES, device=dev)
     clusters_p3 = {"K3": brc.max_active_clusters(eng3), "K4 g=3": mbc.max_active_clusters(eng3, 3)}
     print(f"four_prime: primes {eng.primes} (CRT range 2^{math.log2(math.prod(eng.primes)):.2f}, max_product_bits "
           f"{eng.max_product_bits}); build_s {build_s:.3f} (reused); clusters of {n_pr} resident at once {clusters} "
@@ -1478,7 +1486,7 @@ def parallel_main() -> int:
         return {k: w.launches for k, w in wrappers.items()}
 
     n, steps, batch = PARAMS.polynomial_size, PARAMS.lwe_dimension, PAR_BATCH
-    eng = get_folded_engine(n, dev)
+    eng = get_folded_engine(n, device=dev)
     n_pr = eng.n_primes
     rand_i32, rand_u64, _, mod_err, exact_err = random_inputs(eng, SEED + 5)
     t0 = time.perf_counter()
@@ -1594,7 +1602,7 @@ def parallel_main() -> int:
     check(np.array_equal(gathered(0), out1_np), "(b) world 2, model width 2, bit-equal to (a)")
     ntt_err = {}
     for j, nn in ((1, 2048), (2, 4096)):
-        e_ = get_folded_engine(nn, dev)
+        e_ = get_folded_engine(nn, device=dev)
         f_ref = e_.forward_u64(_u64.u64_from_numpy(xs[nn]).to(dev)).to(torch.int64).cpu().numpy()
         f = np.concatenate([r[j]["f"] for r in sorted(ranks, key=lambda r: r[j]["coord"])], axis=1)
         back = np.concatenate([r[j]["back"] for r in sorted(ranks, key=lambda r: r[j]["coord"])], axis=1)
@@ -1658,9 +1666,11 @@ def main() -> int:
 
     import numpy as np
 
+    import tfhe_tpu_torch.core as tcore
     from tfhe_tpu_torch import _build
     from tfhe_tpu_torch import params as tp
     from tfhe_tpu_torch.api.compact_pke import PKE_PARAMS_2M128 as PKE
+    from tfhe_tpu_torch.api.public_key import gen_public_key, pk_encrypt_blocks
     from tfhe_tpu_torch.core import bootstrap as bt
     from tfhe_tpu_torch.core import multibit as mb
     from tfhe_tpu_torch.core.lwe import keyswitch
@@ -1711,7 +1721,7 @@ def main() -> int:
         return {k: w.launches for k, w in wrappers.items()}
 
     n = PARAMS.polynomial_size
-    eng = get_folded_engine(n, dev)
+    eng = get_folded_engine(n, device=dev)
     n_pr = eng.n_primes
     check(eng.primes == FOLDED_PRIMES, f"the parent runs the 3-prime set (TFHE_TPU_PRIMES unset), got {eng.primes}")
     primes = torch.tensor(eng.primes, device=dev).view(1, n_pr, 1)
@@ -1764,7 +1774,7 @@ def main() -> int:
     # digit rows per ciphertext at N = 1024, batch 512), then at ragged row
     # counts and the extreme inputs at N = 1024 and 2048
     n11 = LOOP.polynomial_size
-    eng11 = get_folded_engine(n11, dev)
+    eng11 = get_folded_engine(n11, device=dev)
     rows11 = BATCH * (LOOP.glwe_dimension + 1) * LOOP.pbs.level
     half = 1 << (LOOP.pbs.base_log - 1)
     digits = rand_i32((BATCH, LOOP.glwe_dimension + 1, n11), -half, half)
@@ -1786,7 +1796,7 @@ def main() -> int:
     # and 6), timed here, before the first profiler window over a whole path:
     # short profiles taken after one have lost kernel events on the H100
     # the gate step: 9 digit rows per ciphertext, |digit| <= 2^(base_log - 1)
-    eng10 = get_folded_engine(BOOL.polynomial_size, dev)
+    eng10 = get_folded_engine(BOOL.polynomial_size, device=dev)
     rows_b = BATCH * (BOOL.glwe_dimension + 1) * BOOL.pbs.level
     half_b = 1 << (BOOL.pbs.base_log - 1)
     digits = rand_i32((rows_b, BOOL.polynomial_size), -half_b, half_b + 1)
@@ -1858,7 +1868,7 @@ def main() -> int:
           f"ragged rows with extreme inputs, (K1 i32, K1 u64, K2) err {edge}", flush=True)
     # K1 and K2 at the compact-PKE public key's encryption (path 8): k*N + 128
     # zero-encryptions at N = 1024, K1 on the u64 masks, K2 on its output
-    eng_pke = get_folded_engine(PKE.polynomial_size, dev)
+    eng_pke = get_folded_engine(PKE.polynomial_size, device=dev)
     rows_pke = PKE.glwe_dimension * PKE.polynomial_size + 128
     masks = rand_u64((rows_pke, PKE.glwe_dimension, PKE.polynomial_size))
     f_pke = eng_pke.forward_u64(masks)
@@ -1931,6 +1941,30 @@ def main() -> int:
           f"K1-K3 launched on the classic path {paths['classic']}")
     print(f"classic path: keygen_s {keygen_s:.3f}; {BATCH} ct identity/3v/mul decrypt ok; "
           f"8-ct PBS kernel == plain (err {pbs_err}); launches {paths['classic']}", flush=True)
+
+    # surface, classic part (after the path's counts were read): the JAX
+    # package's calls, reached through the port's re-exports
+    t0 = time.perf_counter()
+    before = read_counts()
+    via_core = tcore.programmable_bootstrap(
+        tcore.keyswitch(c.ct[:64], sk.ksk), si.generate_lut(PARAMS, lambda v: v, "cuda"), sk.bsk, eng
+    )
+    surf_pbs_counts = {k: v - before[k] for k, v in read_counts().items()}
+    surf_pbs_err = exact_err(via_core, ident.ct[:64])
+    check(surf_pbs_err == 0 and surf_pbs_counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0},
+          f"surface: core.keyswitch + core.programmable_bootstrap on 64 ct equal apply_lut's in one K3 launch "
+          f"(err {surf_pbs_err}, launches {surf_pbs_counts})")
+    pk = gen_public_key(ck, FheRng(SEED + 5, "cuda"), 64)
+    pk_ct = pk_encrypt_blocks(pk, vals[:64], FheRng(SEED + 6, "cuda"))
+    pk_dec = si.decrypt(ck, si.Ciphertext(ct=pk_ct, params=PARAMS, degree=3, noise_level=1))
+    zeros_dec = si.decrypt(ck, si.Ciphertext(ct=pk.zeros, params=PARAMS, degree=3, noise_level=1))
+    check(tuple(pk.zeros.shape) == (64, PARAMS.big_lwe_dimension + 1) and pk.zeros.is_cuda
+          and bool((zeros_dec == 0).all()) and bool((pk_dec == vals[:64]).all()),
+          "surface: gen_public_key(ck, rng, 64) on the card: 64 zero encryptions, and its encryptions decrypt")
+    torch.cuda.synchronize()
+    surface = dict(classic_s=time.perf_counter() - t0, pbs_err=surf_pbs_err, pbs_launches=surf_pbs_counts,
+                   pk_rows=pk.zeros.shape[0])
+    del via_core, pk, pk_ct
 
     pbs_ms = cuda_ms(lambda: si.apply_lut(sk, c, lut3, 3), 3)
     print(f"pbs: batch {BATCH}, {pbs_ms:.3f} ms per apply_lut, "
@@ -2005,6 +2039,28 @@ def main() -> int:
     print(f"multibit path (GROUP_3, n={MB3.lwe_dimension}, g={g3}): keygen_s {mb_keygen_s:.3f}; "
           f"{BATCH} ct identity/3v/mul decrypt ok; 8-ct PBS kernel == plain (err {mb_pbs_err}); "
           f"launches {paths['multibit']}", flush=True)
+
+    # surface, GROUP_3 part: the JAX package's `table`, by position
+    t0 = time.perf_counter()
+    small64 = keyswitch(c.ct[:64], sk.ksk)
+    before = read_counts()
+    rot_default = mb.multibit_blind_rotate(lut3, small64, sk.bsk, eng)
+    rot_given = mb.multibit_blind_rotate(lut3, small64, sk.bsk, eng, sk.bsk.rot_table)
+    surf_rot_counts = {k: v - before[k] for k, v in read_counts().items()}
+    surf_rot_err = exact_err(rot_given, rot_default)
+    check(surf_rot_err == 0 and surf_rot_counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 2},
+          f"surface: multibit_blind_rotate(..., bsk.rot_table) equals the default call, one K4 launch each "
+          f"(err {surf_rot_err}, launches {surf_rot_counts})")
+    torch.cuda.synchronize()
+    surface.update(multibit_s=time.perf_counter() - t0, rot_err=surf_rot_err, rot_launches=surf_rot_counts)
+    surface["seconds"] = surface["classic_s"] + surface["multibit_s"]
+    check(surface["seconds"] < 5, f"surface: the checks add under 5 s ({surface['seconds']:.3f} s)")
+    print(f"surface: core.keyswitch + core.programmable_bootstrap on 64 ct == apply_lut (err {surf_pbs_err}, "
+          f"launches {surf_pbs_counts}); gen_public_key(ck, rng, 64) on the card, its zeros and 64 pk encryptions "
+          f"decrypt; multibit_blind_rotate(..., bsk.rot_table) == default on 64 ct (err {surf_rot_err}, launches "
+          f"{surf_rot_counts}); {surface['classic_s']:.3f} s + {surface['multibit_s']:.3f} s = "
+          f"{surface['seconds']:.3f} s added", flush=True)
+    del small64, rot_default, rot_given
 
     mb_pbs_ms = cuda_ms(lambda: si.apply_lut(sk, c, lut3, 3), 3)
     print(f"pbs_multibit: batch {BATCH}, {mb_pbs_ms:.3f} ms per apply_lut, "

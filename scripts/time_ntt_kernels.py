@@ -67,7 +67,7 @@ def worker() -> None:
 
     out = {}
     for name, (n, r1, ru, r2) in SHAPES.items():
-        eng = get_folded_engine(n, dev)
+        eng = get_folded_engine(n, device=dev)
         primes = torch.tensor(eng.primes, device=dev).view(1, -1, 1)
         x = torch.randint(-(2**31), 2**31, (r1, n), generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
         hi, lo = (torch.randint(0, 2**32, (ru, n), generator=gen, device=dev, dtype=torch.int64) for _ in range(2))

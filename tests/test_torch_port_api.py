@@ -21,10 +21,15 @@ across with `convert`:
   the compact public key, the threshold shares);
 * the key cache keeps the reference's file name and skips the disk on the
   card; every device entry point raises without a card unless given
-  device="cpu".
+  device="cpu";
+* the package re-exports what the reference's does: the 22 names of
+  `tfhe_tpu.core`, `params` and `rng`, and `native.bitpack`/`bitunpack`.
 """
 
+import ast
 import dataclasses
+import importlib
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -47,6 +52,7 @@ from tfhe_tpu.api import zkpok as jzk
 from tfhe_tpu.models import integer as jri
 from tfhe_tpu.models import shortint as jsi
 from tfhe_tpu.rng import FheRng as JaxRng
+from tfhe_tpu import native as jnative
 from tfhe_tpu.utils import keccak as jkeccak
 from tfhe_tpu.utils import keycache as jkc
 from tfhe_tpu.utils import serialization as jser
@@ -64,8 +70,11 @@ from tfhe_tpu_torch.api import shamir as tsh
 from tfhe_tpu_torch.api import threshold as tth
 from tfhe_tpu_torch.api import types as tty
 from tfhe_tpu_torch.api import zkpok as tzk
+from tfhe_tpu_torch.core import glwe as tglwe
+from tfhe_tpu_torch.core import keys as tkeys
 from tfhe_tpu_torch.models import integer as tri
 from tfhe_tpu_torch.models import shortint as tsi
+from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.rng import FheRng
 from tfhe_tpu_torch.utils import keccak as tkeccak
 from tfhe_tpu_torch.utils import keycache as tkc
@@ -370,6 +379,53 @@ def test_port_draws_the_reference_keys_and_lists(ref):
         np.testing.assert_array_equal(_u64.u64_to_numpy(mine.share), np.asarray(want.share))
 
 
+def test_public_keys_take_n_rows_by_position_as_the_reference(ref):
+    """n_rows, the third parameter of gen_public_key and the fourth of
+    gen_compact_pke_keys, sets the number of zero encryptions. The public
+    key equals the reference's from the same seed. The compact-PKE key's
+    40 rows decrypt to 0 under the PKE secret its seed draws first, and
+    its casting key is the reference's (the draws are split, so the row
+    count moves no later draw); 0 means the default, as in the reference."""
+    pk = tpk.gen_public_key(ref.tck, FheRng(12, device="cpu"), 40)
+    np.testing.assert_array_equal(
+        _u64.u64_to_numpy(pk.zeros), np.asarray(jpk.gen_public_key(ref.jck, JaxRng(12), 40).zeros)
+    )
+    keys = tcp.gen_compact_pke_keys(ref.tck, tcp.TOY_PKE, FheRng(42, device="cpu"), 40)
+    assert tuple(keys.pke_pk.shape) == (40, tcp.TOY_PKE.glwe_dimension + 1, tcp.TOY_PKE.polynomial_size)
+    assert torch.equal(keys.casting_ksk.ksk, ref.tkeys.casting_ksk.ksk)
+    pke = tcp.TOY_PKE
+    pke_sk = tkeys.gen_glwe_secret_key(FheRng(42, device="cpu"), pke.glwe_dimension, pke.polynomial_size)
+    phase = tglwe.decrypt_glwe(pke_sk, keys.pke_pk, get_folded_engine(pke.polynomial_size, device="cpu"))
+    assert int(phase.abs().max()) < 2**50  # noise only, far below the 2^60 plaintext scale
+    default = tcp.gen_compact_pke_keys(ref.tck, tcp.TOY_PKE, FheRng(42, device="cpu"), 0)
+    assert torch.equal(default.pke_pk, ref.tkeys.pke_pk)
+
+
+def _core_reexports():
+    """(name, module) of every name tfhe_tpu/core/__init__.py imports."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "tfhe_tpu" / "core" / "__init__.py").read_text())
+    return [(a.name, n.module.rsplit(".", 1)[1]) for n in tree.body if isinstance(n, ast.ImportFrom) for a in n.names]
+
+
+@pytest.mark.parametrize("name, module", _core_reexports(), ids=lambda v: v if isinstance(v, str) else None)
+def test_core_reexports_the_references_names(name, module):
+    import tfhe_tpu_torch.core as tcore
+
+    assert getattr(tcore, name) is getattr(importlib.import_module(f"tfhe_tpu_torch.core.{module}"), name)
+
+
+def test_package_and_native_reexports():
+    import tfhe_tpu_torch
+    from tfhe_tpu_torch.core import seeded as tsd
+
+    assert len(_core_reexports()) == 22
+    assert tfhe_tpu_torch.params is tp and tfhe_tpu_torch.rng is importlib.import_module("tfhe_tpu_torch.rng")
+    assert native.bitpack is tsd.bitpack and native.bitunpack is tsd.bitunpack
+    vals = np.arange(37, dtype=np.uint32) * 91 % 2**11
+    assert native.bitpack(vals, 11) == jnative.bitpack(vals, 11)
+    np.testing.assert_array_equal(native.bitunpack(native.bitpack(vals, 11), 11, 37), vals)
+
+
 # -- key cache and devices ----------------------------------------------------
 
 
@@ -384,6 +440,7 @@ def test_keycache_names_files_as_the_reference_and_round_trips(tmp_path, monkeyp
     assert info2["hit"]
     assert torch.equal(ck2.lwe_key.key, ck.lwe_key.key) and torch.equal(sk2.bsk.bsk_ntt, sk.bsk.bsk_ntt)
     assert not tkc._disk_cache_pays_off(torch.device("cuda"))
+    assert tkc.DEFAULT_DIR == tkc.default_dir() and tkc.DEFAULT_DIR.endswith("torch_keys")
     monkeypatch.setenv("TFHE_TPU_KEY_CACHE", "force")
     assert tkc._disk_cache_pays_off(torch.device("cuda"))
 

@@ -72,7 +72,7 @@ def _random_shoup_rows(te, rng, lead):
 
 
 def test_plain_steps_match_pallas_kernel():
-    je, te = jax_engine(N), get_folded_engine(N, "cpu")
+    je, te = jax_engine(N), get_folded_engine(N, device="cpu")
     rng = np.random.default_rng(0)
     b, steps = 8, 2
     acc = rng.integers(0, 2**64, size=(b, 2, N), dtype=np.uint64)
@@ -101,7 +101,7 @@ def test_plain_steps_match_pallas_kernel():
 
 
 def test_step_layout_matches_reference():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     bsk = _random_shoup_rows(te, np.random.default_rng(1), (3, 2, 2))
     v, s = brc.bsk_to_step_layout(bsk)
     jv, js = jax_step_layout(jnp.asarray(bsk.numpy().view(np.uint32)))
@@ -110,7 +110,7 @@ def test_step_layout_matches_reference():
 
 
 def test_garner_matches_reference():
-    je, te = jax_engine(N), get_folded_engine(N, "cpu")
+    je, te = jax_engine(N), get_folded_engine(N, device="cpu")
     rng = np.random.default_rng(2)
     res = [rng.integers(0, p, size=(3, N)).astype(np.uint32) for p in te.primes]
     # extremes of the signed range around prod/2 and 0
@@ -148,7 +148,7 @@ def _k3_monomial(te, r, e):
 def test_k3_monomials_give_the_rot_table():
     """Every a in [0, 2N), a = 0 (the zero row) and a >= N (X^(N+j) = -X^j)
     included: values and Shoup companions word for word."""
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     table = brc.monomial_ntt_table(te).numpy().view(np.uint32)  # (2N, P, 2, N)
     for r in range(te.n_primes):
         m, ms = _k3_monomial(te, r, np.arange(2 * N)[:, None])
@@ -192,7 +192,7 @@ def test_k3_step_order_matches_plain():
     """Three steps on random accumulators and key rows, exponents 0 and
     >= N among them: the kernel's order equals one_step_plain bit for bit,
     and the next step's digits come from the new accumulator."""
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     rng = np.random.default_rng(12)
     b, steps = 3, 3
     acc = rng.integers(0, 2**64, size=(b, 2, N), dtype=np.uint64)
@@ -260,7 +260,7 @@ def test_keyswitch_pbs_matches_reference(fused_setup, fused_reference):
     _, ct, lut, _, rotated = fused_reference
     want = np.asarray(jax_sample_extract(jnp.asarray(rotated), 0))
     got = tbt.keyswitch_pbs(
-        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(N, "cpu")
+        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(N, device="cpu")
     )
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
 
@@ -297,7 +297,7 @@ def test_keys_from_reference_default_to_the_card(fused_setup):
 
 def test_rot_table_matches_reference(fused_setup):
     _, _, sk, _, tsk = fused_setup
-    got = brc.monomial_ntt_table(get_folded_engine(N, "cpu"))
+    got = brc.monomial_ntt_table(get_folded_engine(N, device="cpu"))
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(sk.bsk.rot_table))
     assert torch.equal(got, tsk.bsk.rot_table)
 
@@ -319,7 +319,7 @@ def test_external_product_loop_matches_scan():
 
 
 def test_cmux_wrapper_checks_shapes():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     acc = torch.zeros(2, 2, N, dtype=torch.int64)
     with pytest.raises(ValueError, match="bsk_ntt"):
         brc.cmux_steps(acc, torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, 2, dtype=torch.int32),

@@ -153,7 +153,7 @@ def test_ggsw_rows_match_reference_at_k2_level3():
         JaxGlweSecretKey(key=jnp.asarray(key)), jnp.asarray(m), params_j.pbs, JaxRng(8), zero_j, jax_engine(n)
     )
     want = np.asarray(jax_decrypt_glwe(JaxGlweSecretKey(key=jnp.asarray(key)), g_j, jax_engine(n)))
-    eng = get_folded_engine(n, "cpu")
+    eng = get_folded_engine(n, device="cpu")
     tkey = GlweSecretKey(key=convert.u64_tensor(key))
     g_t = tggsw.encrypt_ggsw_bits(
         tkey, convert.u64_tensor(m), tp.GadgetParams(base_log=9, level=3), FheRng(9, "cpu"), tp.NoiseDistribution.zero(), eng

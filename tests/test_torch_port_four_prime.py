@@ -94,9 +94,9 @@ def test_prime_set_is_valid():
     assert math.prod(FOLDED_PRIMES_4) > 2**95
     assert tfn.default_primes() == tfn.DEFAULT_PRIMES == FOLDED_PRIMES
     with pytest.raises(AssertionError):
-        tfn.FoldedCrtEngine(64, torch.device("cpu"), primes=FOLDED_PRIMES_4[::-1])
+        tfn.FoldedCrtEngine(64, primes=FOLDED_PRIMES_4[::-1], device="cpu")
     with pytest.raises(AssertionError):  # mixed digit planes
-        tfn.FoldedCrtEngine(64, torch.device("cpu"), primes=(FOLDED_PRIMES_4[0], FOLDED_PRIMES[0]))
+        tfn.FoldedCrtEngine(64, primes=(FOLDED_PRIMES_4[0], FOLDED_PRIMES[0]), device="cpu")
 
 
 @pytest.mark.parametrize("p", list(FOLDED_PRIMES_4))
@@ -114,9 +114,9 @@ def test_roundtrip_single_prime_4p(p):
 @pytest.mark.parametrize("primes", PRIME_SETS, ids=PRIME_IDS)
 @pytest.mark.parametrize("n", [64, 256])
 def test_polymul_mod_2_64(n, primes):
-    eng = get_folded_engine(n, "cpu", primes=primes)
+    eng = get_folded_engine(n, primes=primes, device="cpu")
     assert eng.primes == tuple(primes) and eng.n_primes == len(primes)
-    assert get_folded_engine(n, "cpu", primes=list(primes)) is eng  # cached by (n, device, primes)
+    assert get_folded_engine(n, primes=list(primes), device="cpu") is eng  # cached by (n, device, primes)
     rng = np.random.default_rng(2)
     a = rng.integers(-(2**9), 2**9, size=(n,))
     b = rng.integers(0, 2**64, size=(n,), dtype=np.uint64)
@@ -128,9 +128,23 @@ def test_polymul_mod_2_64(n, primes):
         np.testing.assert_array_equal(u32(eng.forward_u64(t64(b))), np.asarray(jeng.forward_u64(jnp.asarray(b))))
 
 
+def test_folded_engine_takes_primes_by_position():
+    """primes is the second parameter, as in the JAX package, and device is
+    keyword-only: the positional call gives the keyword call's cached
+    engine, and a constructed one the same tables."""
+    eng = get_folded_engine(64, FOLDED_PRIMES_4, device="cpu")
+    assert eng is get_folded_engine(64, primes=FOLDED_PRIMES_4, device="cpu") and eng.primes == FOLDED_PRIMES_4
+    own = tfn.FoldedCrtEngine(64, FOLDED_PRIMES_4, device="cpu")
+    assert own.primes == eng.primes and own.device == eng.device == torch.device("cpu")
+    x = t64(np.arange(64) - 32)
+    assert torch.equal(own.forward_small(x), eng.forward_small(x))
+    with pytest.raises(TypeError):
+        get_folded_engine(64, FOLDED_PRIMES_4, "cpu")
+
+
 def test_shoup_key_path_4p():
     n = 256
-    eng = get_folded_engine(n, "cpu", primes=FOLDED_PRIMES_4)
+    eng = get_folded_engine(n, primes=FOLDED_PRIMES_4, device="cpu")
     rng = np.random.default_rng(4)
     a = rng.integers(-(2**10), 2**10, size=(3, n))
     b = rng.integers(0, 2**64, size=(n,), dtype=np.uint64)
@@ -145,7 +159,7 @@ def test_shoup_key_path_4p():
 
 def test_backward_shift_4p():
     n = 64
-    eng = get_folded_engine(n, "cpu", primes=FOLDED_PRIMES_4)
+    eng = get_folded_engine(n, primes=FOLDED_PRIMES_4, device="cpu")
     rng = np.random.default_rng(5)
     a = rng.integers(-(2**10), 2**10, size=(n,))
     b = rng.integers(0, 2**44, size=(n,), dtype=np.uint64)
@@ -158,8 +172,8 @@ def test_backward_shift_4p():
 def test_max_product_bits_improves():
     """76 -> 83 bits at N = 2048, as the JAX engines; the classic and the
     g = 3 multi-bit key keep 55 bits (53 and 51 at three primes)."""
-    e3 = get_folded_engine(2048, "cpu", primes=FOLDED_PRIMES)
-    e4 = get_folded_engine(2048, "cpu", primes=FOLDED_PRIMES_4)
+    e3 = get_folded_engine(2048, primes=FOLDED_PRIMES, device="cpu")
+    e4 = get_folded_engine(2048, primes=FOLDED_PRIMES_4, device="cpu")
     assert (e3.max_product_bits, e4.max_product_bits) == (76, 83)
     g = tp.PARAM_MESSAGE_2_CARRY_2_KS_PBS_TUNIFORM_2M128.pbs
     assert [tmb.multibit_msb(g, 3, e) for e in (e3, e4)] == [51, 55]
@@ -215,7 +229,7 @@ def _keys(seed: int, primes, group: int | None):
     vectors and test_torch_port_multibit, and its P = 4 transforms and
     Shoup pairs by the engine cases above)."""
     n_poly = P_L1.polynomial_size
-    eng = get_folded_engine(n_poly, "cpu", primes=primes)
+    eng = get_folded_engine(n_poly, primes=primes, device="cpu")
     jeng = jfn.get_folded_engine(n_poly, primes)
     rng, jrng = FheRng(seed, "cpu"), JaxRng(seed)
     lwe_sk, jlwe_sk = gen_lwe_secret_key(rng, P_L1.lwe_dimension), jkeys.gen_lwe_secret_key(jrng, P_L1.lwe_dimension)

@@ -120,8 +120,21 @@ def test_own_keys_matmul_decrypts(r, c, o, signed):
     assert not np.array_equal(tgm.decrypt_matrix(res, wrong).numpy(), x.astype(np.int64) @ w)
 
 
+def test_prepare_clear_weights_takes_n_valid_by_position():
+    """n_valid is the third parameter, as in the JAX package, and unused
+    there too; device is keyword-only. The positional call prepares the
+    keyword call's weights (held against JAX's matmul in
+    test_matmul_matches_reference)."""
+    w = np.random.RandomState(9).randint(-8, 8, size=(20, 3)).astype(np.int64)
+    prep = tgm.prepare_clear_weights(tp.TOY_MATMUL, w, 20, device="cpu")
+    assert torch.equal(prep.f_w, tgm.prepare_clear_weights(tp.TOY_MATMUL, w, device="cpu").f_w)
+    assert prep.shape == (20, 3)
+    with pytest.raises(TypeError):
+        tgm.prepare_clear_weights(tp.TOY_MATMUL, w, None, "cpu")
+
+
 def test_prepare_clear_weights_checks_the_crt_bound():
-    eng = get_folded_engine(N, "cpu")
+    eng = get_folded_engine(N, device="cpu")
     w_bits = eng.max_product_bits - 64 - 1  # two chunks
     w = np.zeros((CIN, 2), dtype=np.int64)
     w[0, 0] = 1 << w_bits
@@ -136,7 +149,7 @@ def test_packing_keyswitch_matches_reference(keys):
     lwes = np.random.default_rng(11).integers(0, 2**64, size=(R, 2, N, N + 1), dtype=np.uint64)
     lwes[1, 1, 200:] = 0  # a partly filled polynomial, as the last output chunk
     want = np.asarray(jpk.packing_keyswitch(jnp.asarray(lwes), pk.pksk, jax_engine(N)))
-    got = tpk.packing_keyswitch(convert.u64_tensor(lwes), tkey.pksk, get_folded_engine(N, "cpu"))
+    got = tpk.packing_keyswitch(convert.u64_tensor(lwes), tkey.pksk, get_folded_engine(N, device="cpu"))
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
     assert tkey.pksk.shift == pk.pksk.shift
 
@@ -153,7 +166,7 @@ def test_packing_key_own_keygen_layout(keys):
 @pytest.mark.parametrize("index", [0, 77, N - 1])
 def test_backward_coeff_matches_reference(index):
     f = np.random.default_rng(index).integers(0, 2**31, size=(3, 2, 3, N), dtype=np.uint32)
-    eng = get_folded_engine(N, "cpu")
+    eng = get_folded_engine(N, device="cpu")
     got = eng.backward_coeff(convert.u32_tensor(f), index, shift=5)
     want = np.asarray(jax_engine(N).backward_coeff(jnp.asarray(f), index, shift=5))
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
@@ -188,7 +201,7 @@ def test_bitpack_odd_widths_match_native():
 
 def test_seeded_glwe_roundtrip_decrypts(keys):
     _, tkey = keys
-    eng = get_folded_engine(N, "cpu")
+    eng = get_folded_engine(N, device="cpu")
     msg = torch.from_numpy(np.random.default_rng(2).integers(0, 16, size=(3, N))) << 58
     ct = tsd.encrypt_glwe_seeded(tkey.glwe_key, msg, 1234, tp.TOY_MATMUL.glwe_noise, eng)
     full = tsd.expand_seeded_glwe(ct)

@@ -101,7 +101,7 @@ def test_port_draws_the_carried_keys(carried):
     the ciphertexts, bit for bit, with no `convert`."""
     params, engine, keys, ct, lut = carried
     rng = FheRng(np.asarray(jax.random.key_data(jax.random.key(3))), "cpu")
-    eng = get_folded_engine(N, "cpu")
+    eng = get_folded_engine(N, device="cpu")
     glwe_sk = tkeys.gen_glwe_secret_key(rng, 1, N)
     lwe_sk = tkeys.gen_lwe_secret_key(rng, N_LWE)
     tparams = tp.TOY_SHORTINT
@@ -137,9 +137,24 @@ def test_blind_rotate_matches_reference(carried, g):
     assert tmb.uses_fused_group_steps(tbsk, 2)
     want = jmb.multibit_blind_rotate(lut, ct, jbsk, engine)
     got = tmb.multibit_blind_rotate(
-        convert.u64_tensor(lut), convert.u64_tensor(ct), tbsk, get_folded_engine(N, "cpu")
+        convert.u64_tensor(lut), convert.u64_tensor(ct), tbsk, get_folded_engine(N, device="cpu")
     )
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), np.asarray(want))
+
+
+def test_blind_rotate_takes_a_table_by_position(carried):
+    """`table`, the fifth parameter as in the JAX package, replaces
+    bsk.rot_table: the key's own table and one built from the engine give
+    the default call's accumulator, which test_blind_rotate_matches_reference
+    holds against JAX's (whose default is the same bsk.rot_table)."""
+    _, _, keys, ct, lut = carried
+    tbsk = keys[2][1]
+    eng = get_folded_engine(N, device="cpu")
+    tlut, tct = convert.u64_tensor(lut), convert.u64_tensor(ct[:2])
+    default = tmb.multibit_blind_rotate(tlut, tct, tbsk, eng)
+    for table in (tbsk.rot_table, tmb.monomial_x_table(eng)):
+        assert torch.equal(tmb.multibit_blind_rotate(tlut, tct, tbsk, eng, table), default)
+    assert not torch.equal(tmb.multibit_blind_rotate(tlut, tct, tbsk, eng, tbsk.rot_table.roll(1, 0)), default)
 
 
 def test_plain_steps_match_pallas_kernel(carried):
@@ -154,7 +169,7 @@ def test_plain_steps_match_pallas_kernel(carried):
     want = multibit_rotate_fused(acc, e_all, jbsk, engine, jbsk.rot_table)
     a = torch.from_numpy(np.asarray(ms[..., :-1]).astype(np.int64)).t()
     got = mbc.group_steps_plain(
-        convert.u64_tensor(acc), a, tbsk.bsk_ntt, tbsk.rot_table, get_folded_engine(N, "cpu"),
+        convert.u64_tensor(acc), a, tbsk.bsk_ntt, tbsk.rot_table, get_folded_engine(N, device="cpu"),
         23, tbsk.shift, 2,
     )
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), np.asarray(want))
@@ -162,7 +177,7 @@ def test_plain_steps_match_pallas_kernel(carried):
 
 def test_monomial_x_table_matches_reference(carried):
     _, _, keys, _, _ = carried
-    got = tmb.monomial_x_table(get_folded_engine(N, "cpu"))
+    got = tmb.monomial_x_table(get_folded_engine(N, device="cpu"))
     assert torch.equal(got, keys[2][1].rot_table)
 
 
@@ -171,7 +186,7 @@ def test_kernel_horner_order_matches_plain(g):
     """csrc/multibit.cu folds x[v] += m_b * x[v + 2^b] bottom-up with
     canonical add_mod / mul_shoup; the plain `_horner` folds top-down on
     lazy residues. Both give the same value mod p."""
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     p = te.primes[0]
     rng = np.random.default_rng(10 + g)
     inners = rng.integers(0, 2 * p, size=(1 << g, N))
@@ -244,7 +259,7 @@ def _monomial_rows(te, e, x):
 
 
 def test_shoup_companion_is_exact():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     gs = mbc.garner_consts_shoup(te).numpy().view(np.uint32)
     rng = np.random.default_rng(8)
     for i, p in enumerate(te.primes):
@@ -254,7 +269,7 @@ def test_shoup_companion_is_exact():
 
 
 def test_psi_powers_give_the_monomial_table():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     table = tmb.monomial_x_table(te).numpy().view(np.uint32)  # (2N, P, 2, N)
     x = np.random.default_rng(3).integers(0, 2**32, N, dtype=np.uint64)
     want_psi = mbc.psi_powers(te).numpy().view(np.uint32)
@@ -268,7 +283,7 @@ def test_psi_powers_give_the_monomial_table():
 
 def test_psi_powers_give_monomial_rows_at_2048():
     n = 2048
-    te = get_folded_engine(n, "cpu")
+    te = get_folded_engine(n, device="cpu")
     es = [0, 1, n - 1, n, 2 * n - 1, *np.random.default_rng(4).integers(0, 2 * n, 5).tolist()]
     polys = np.zeros((len(es), n), dtype=np.int64)  # the rows monomial_x_table builds
     for r, e in enumerate(es):
@@ -305,7 +320,7 @@ def _garner_u32(res, gs):
 
 
 def test_garner_u32_matches_crt_reconstruct():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     prod = te.garner.prod
     # the extremes: prod/2 (the largest positive value) and one above it
     # (the most negative), 0, 1, -1, then random values
@@ -325,7 +340,7 @@ def test_garner_u32_matches_crt_reconstruct():
 def test_garner_consts_shoup_need_ascending_primes():
     from tfhe_tpu_torch.ops.folded_ntt import GarnerConsts
 
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     shuffled = types.SimpleNamespace(garner=GarnerConsts(tuple(reversed(te.primes))), device=te.device)
     with pytest.raises(ValueError, match="ascending"):
         mbc.garner_consts_shoup(shuffled)
@@ -347,7 +362,7 @@ def test_digit_residue_is_d_mod_p(base_log):
 
     half = 1 << (base_log - 1)
     rng = np.random.default_rng(base_log)
-    for p in (*get_folded_engine(N, "cpu").primes, *FOLDED_PRIMES_4):
+    for p in (*get_folded_engine(N, device="cpu").primes, *FOLDED_PRIMES_4):
         # the extreme digits, multiples of p near them, and random ones
         d = [-half, -half + 1, -1, 0, 1, half - 1]
         d += [s * k * p + o for s in (-1, 1) for k in range(1, 4) for o in (-1, 0, 1)]
@@ -430,7 +445,7 @@ def test_k4_ntt_rounds_match_plain(n):
     """K4's NTT in rounds of three stages (all round sizes 1, 2, 3 occur)
     equals the plain forward transform at every folded slot, and its
     inverse gives the input back."""
-    te = get_folded_engine(n, "cpu")
+    te = get_folded_engine(n, device="cpu")
     logn, logc = ntt_cuda._dims(te)
     tw, pp = (t.numpy().view(np.uint32).astype(np.uint64) for t in ntt_cuda.kernel_tables(te))
     x = np.random.default_rng(n).integers(-(2**22), 2**22, n)
@@ -475,7 +490,7 @@ def test_k4_padding_spreads_the_strided_accesses():
 
 @pytest.mark.parametrize("n", (256, 2048))
 def test_bitrev_unfold_inverts_folded_slot(n):
-    logn, logc = ntt_cuda._dims(get_folded_engine(n, "cpu"))
+    logn, logc = ntt_cuda._dims(get_folded_engine(n, device="cpu"))
     h = np.arange(n)
     k = _bitrev(_unfold(h, logn, logc), logn)
     np.testing.assert_array_equal(_folded_slot(k, logn, logc), h)
@@ -501,7 +516,7 @@ def test_own_keygen_decrypts(carried, g):
     )
     ck, sk = tsi.keygen(params, seed=20 + g, multibit_group=g, device="cpu")
     assert isinstance(sk.bsk, tmb.MultiBitBootstrapKey) and sk.bsk.group_size == g
-    engine = get_folded_engine(N, "cpu")
+    engine = get_folded_engine(N, device="cpu")
     assert sk.bsk.shift == keys[g][0].shift == 64 - tmb.multibit_msb(params.pbs, g, engine)
     vals = torch.tensor([0, 1, 2, 3, 2, 1])
     c = tsi.encrypt(ck, vals, FheRng(30 + g, device="cpu"))
@@ -530,7 +545,7 @@ def test_keygen_reads_group_from_name():
 
 
 def test_group_steps_checks_shapes():
-    te = get_folded_engine(N, "cpu")
+    te = get_folded_engine(N, device="cpu")
     acc = torch.zeros(2, 2, N, dtype=torch.int64)
     table = torch.zeros(2 * N, 3, 2, N, dtype=torch.int32)
     bsk = torch.zeros(1, 8, 2, 2, 3, 2, N, dtype=torch.int32)

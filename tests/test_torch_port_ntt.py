@@ -43,7 +43,7 @@ def _one_torch_thread():
 def engines():
     n = 256
     je = jax_engine(n)
-    return n, je, get_folded_engine(n, "cpu"), make_pallas_ntt(je, tm=8, nb=3), make_pallas_ntt(je, tm=8, nb=4)
+    return n, je, get_folded_engine(n, device="cpu"), make_pallas_ntt(je, tm=8, nb=3), make_pallas_ntt(je, tm=8, nb=4)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -126,7 +126,7 @@ def test_forward_n2048():
     """One full-size forward (nb=3) against the JAX engine."""
     n = 2048
     x = np.random.default_rng(6).integers(-(2**23), 2**23 + 1, size=(2, n))
-    got = _u32(get_folded_engine(n, "cpu").forward_small(torch.from_numpy(x)))
+    got = _u32(get_folded_engine(n, device="cpu").forward_small(torch.from_numpy(x)))
     np.testing.assert_array_equal(got, np.asarray(jax_engine(n).forward_small(jnp.asarray(x))))
 
 
@@ -337,7 +337,7 @@ def test_kernel_reductions_at_extremes(q):
     """The %-free int32 and u64 reductions of K1 and the u32 one of K2
     equal Python's x mod p at the extremes, at multiples of p and at
     random values, for each prime."""
-    te = get_folded_engine(256, "cpu")
+    te = get_folded_engine(256, device="cpu")
     _, _, gs = _tables(te)
     p, ws1, c32s = te.primes[q], gs[52 + q], gs[56 + q]
     rng = np.random.default_rng(q)
@@ -356,7 +356,7 @@ def test_slot_of_folded_inverts_folded_slot(n):
     """K1's store and K2's load map h -> k inverts the folded layout's
     k -> h, and the four accesses of a warp (32 lanes, one quad each) fall
     in 32 distinct banks of the padded rows."""
-    te = get_folded_engine(n, "cpu")
+    te = get_folded_engine(n, device="cpu")
     logn, logc = ntt_cuda._dims(te)
     k = np.arange(n)
     h = _folded_slots(n, te.ntts[0].c_dim)
@@ -398,7 +398,7 @@ def test_kernel_algorithm_matches_plain(engines):
 @pytest.mark.parametrize("n", (1024, 2048))
 def test_kernel_algorithm_matches_plain_at(n):
     """The same at the loop path's N = 1024 and the keygen N = 2048."""
-    _kernel_check(get_folded_engine(n, "cpu"), 3, n)
+    _kernel_check(get_folded_engine(n, device="cpu"), 3, n)
 
 
 def test_aligned_copies_only_misaligned_tensors():
@@ -419,7 +419,7 @@ def test_wrappers_refuse_cpu_tensors(engines):
 
 
 def test_wrappers_refuse_unsupported_n():
-    te = get_folded_engine(128, "cpu")
+    te = get_folded_engine(128, device="cpu")
     with pytest.raises(ValueError, match="256, 4096"):
         ntt_cuda.forward(te, torch.zeros(1, 128, dtype=torch.int64), small=True)
     with pytest.raises(ValueError, match="256, 4096"):

@@ -89,7 +89,7 @@ def test_port_keygen_equals_the_reference(ref):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_stage_tables_match_the_reference(n):
-    eng = get_folded_engine(n, "cpu")
+    eng = get_folded_engine(n, device="cpu")
     got = tns._stage_tables(eng)
     want = jns._stage_tables(eng)
     for g, w in zip(got, want):
@@ -101,7 +101,7 @@ def test_stage_tables_match_the_reference(n):
 def test_sharded_forward_matches_engine(ref, worlds, m, j, n):
     x = ref["xs"][n]
     got = _gathered(worlds[m], j, "f")
-    eng = get_folded_engine(n, "cpu")
+    eng = get_folded_engine(n, device="cpu")
     port = eng.forward_u64(_u64.u64_from_numpy(x)).to(torch.int64).numpy()
     for i, p in enumerate(eng.primes):
         assert (got[i] >= 0).all() and (got[i] < p).all()
@@ -117,7 +117,7 @@ def test_sharded_forward_matches_engine(ref, worlds, m, j, n):
 def test_sharded_roundtrip(ref, worlds, m, j, n):
     x = ref["xs"][n]
     back = _gathered(worlds[m], j, "back")
-    for i, p in enumerate(get_folded_engine(n, "cpu").primes):
+    for i, p in enumerate(get_folded_engine(n, device="cpu").primes):
         np.testing.assert_array_equal(back[i], (x % np.uint64(p)).astype(np.int64))
 
 

@@ -17,6 +17,7 @@ import torch
 from tfhe_tpu.ops import polynomial as jpoly
 from tfhe_tpu_torch.ops import get_engine as ops_get_engine
 from tfhe_tpu_torch.ops.polynomial import (
+    DEFAULT_LIMB_BITS,
     DEFAULT_PRIMES,
     FourStepNtt,
     NegacyclicEngine,
@@ -62,6 +63,30 @@ def test_constants_and_exports():
             assert mine[2] == int(ref[2])
 
 
+def test_engines_take_the_reference_call_order():
+    """get_engine(n, primes, limb_bits, ntt_impl) and NegacyclicEngine take
+    the JAX order by position; `device` is keyword-only. limb_bits is
+    stored as the JAX engine stores it and checked as it checks it; the
+    cached engine is the one the keyword call gives. intt's first
+    parameter is `a`, as in the JAX package."""
+    n = 256
+    eng = get_engine(n, DEFAULT_PRIMES, 16, "four_step", device="cpu")
+    assert eng is get_engine(n, device="cpu") and eng.ntt_impl == "four_step"
+    jeng = jpoly.get_engine(n)
+    assert DEFAULT_LIMB_BITS == jpoly.DEFAULT_LIMB_BITS == 16
+    assert (eng.limb_bits, eng.n_limbs) == (jeng.limb_bits, jeng.n_limbs) == (16, 4)
+    small = NegacyclicEngine(16, DEFAULT_PRIMES, 8, "radix2", device="cpu")
+    assert (small.limb_bits, small.n_limbs, small.ntt_impl) == (8, 8, "radix2")
+    with pytest.raises(AssertionError):
+        NegacyclicEngine(16, DEFAULT_PRIMES, 24, device="cpu")
+    with pytest.raises(TypeError):
+        get_engine(n, DEFAULT_PRIMES, 16, "four_step", "cpu")
+    p = DEFAULT_PRIMES[0]
+    _, psi_inv, n_inv = _ntt_tables(p, 16)
+    f = t64(np.arange(16) * 977 % p)
+    assert torch.equal(intt(a=f, psi_inv_rev=psi_inv, n_inv=n_inv, p=p), intt(f, psi_inv, n_inv, p))
+
+
 @pytest.mark.parametrize("p", DEFAULT_PRIMES)
 @pytest.mark.parametrize("n", [16, 256])
 def test_ntt_roundtrip(p, n):
@@ -91,7 +116,7 @@ def test_ntt_negacyclic_convolution_mod_p(p):
 @pytest.mark.parametrize("n", [64, 256])
 def test_polymul_small_x_u64_exact(n):
     """small signed poly x uniform u64 poly, exact mod 2^64, equal to JAX."""
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     rs = np.random.RandomState(3)
     a = rs.randint(-(2**15), 2**15, size=(2, n)).astype(np.int64)
     b = rs.randint(0, 2**64, size=(2, n), dtype=np.uint64)
@@ -108,7 +133,7 @@ def test_polymul_small_x_u64_exact(n):
 def test_polymul_digits_x_modswitched_key():
     """Gadget-digit magnitudes (2^22) against 44-bit key values."""
     n = 256
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     rs = np.random.RandomState(8)
     a = rs.randint(-(2**22), 2**22, size=n).astype(np.int64)
     b = rs.randint(0, 2**44, size=n, dtype=np.uint64)
@@ -119,7 +144,7 @@ def test_polymul_digits_x_modswitched_key():
 def test_polymul_binary_secret():
     """binary poly x u64 poly (the GLWE mask * secret product)."""
     n = 128
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     rs = np.random.RandomState(4)
     s = rs.randint(0, 2, size=n).astype(np.int64)
     m = rs.randint(0, 2**64, size=n, dtype=np.uint64)
@@ -130,7 +155,7 @@ def test_polymul_binary_secret():
 def test_polymul_max_magnitude_guard():
     """The engine reports the JAX engine's headroom and is exact at the edge."""
     n = 256
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     assert eng.max_product_bits == jpoly.get_engine(n).max_product_bits >= 83
     hi = 2 ** (eng.max_product_bits - 64)
     rs = np.random.RandomState(5)
@@ -144,7 +169,7 @@ def test_polymul_max_magnitude_guard():
 
 def test_forward_small_accepts_u64_twos_complement():
     n = 64
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     a_signed = np.array([-5, 3] + [0] * (n - 2), dtype=np.int64)
     a_u64 = a_signed.astype(np.uint64)
     b = np.arange(n, dtype=np.uint64) * np.uint64(2**40)
@@ -160,7 +185,7 @@ def test_forward_small_accepts_u64_twos_complement():
 def test_transform_domain_accumulation():
     """sum_i a_i * b_i with one backward == the sum of polymuls."""
     n = 64
-    eng = get_engine(n, "cpu")
+    eng = get_engine(n, device="cpu")
     rs = np.random.RandomState(6)
     a = rs.randint(-(2**10), 2**10, size=(3, n)).astype(np.int64)
     b = rs.randint(0, 2**64, size=(3, n), dtype=np.uint64)

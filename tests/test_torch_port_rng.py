@@ -184,7 +184,7 @@ def test_seeded_glwe_from_jax_expands_in_port():
     expanded = tse.expand_seeded_glwe(t_in)
     same(jse.expand_seeded_glwe(j_ct), expanded)
     tkey = GlweSecretKey(key=key)
-    eng = get_folded_engine(n, "cpu")
+    eng = get_folded_engine(n, device="cpu")
     err = decrypt_glwe(tkey, expanded, eng) - _u64.u64_from_numpy(pt)
     assert int(err.abs().max()) <= 2**params.glwe_noise.bound_log2
     mine = tse.encrypt_glwe_seeded(tkey, _u64.u64_from_numpy(pt), 77, tp.TOY_SHORTINT.glwe_noise, eng)

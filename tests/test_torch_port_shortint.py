@@ -93,7 +93,7 @@ def test_loop_k2_keyswitch_pbs_matches_reference(loop_k2):
     params, ck, tck, tsk, vals, ct, lut, _, rotated = loop_k2
     want = np.asarray(jax_sample_extract(jnp.asarray(rotated), 0))
     got = tbt.keyswitch_pbs(
-        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(128, "cpu")
+        convert.u64_tensor(ct.ct), convert.u64_tensor(lut), tsk.bsk, tsk.ksk, get_folded_engine(128, device="cpu")
     )
     np.testing.assert_array_equal(_u64.u64_to_numpy(got), want)
     out = tsi.Ciphertext(ct=got, params=tck.params, degree=3, noise_level=1)
@@ -182,31 +182,21 @@ def test_degree_bookkeeping_and_luts_match_reference():
 
 
 def test_package_imports_no_jax():
+    """Every module of the port, found by a walk of the tree (later ones
+    too), imports in a fresh process without jax, tfhe_tpu, sklearn or
+    pandas."""
+    pkg = REPO / "tfhe_tpu_torch"
+    mods = sorted(
+        ".".join(("tfhe_tpu_torch", *f.relative_to(pkg).with_suffix("").parts)).removesuffix(".__init__")
+        for f in pkg.rglob("*.py")
+        if "_build" not in f.relative_to(pkg).parts
+    )
+    assert len(mods) > 80 and "tfhe_tpu_torch.parallel._comm" in mods and "tfhe_tpu_torch.core" in mods
     code = (
-        "import sys, tfhe_tpu_torch.models.shortint, tfhe_tpu_torch.convert, "
-        "tfhe_tpu_torch.ops.ntt_cuda, tfhe_tpu_torch.ops.blind_rotate_cuda, "
-        "tfhe_tpu_torch.core.multibit, tfhe_tpu_torch.ops.multibit_cuda, "
-        "tfhe_tpu_torch.models.integer, tfhe_tpu_torch.parallel.dispatch, "
-        "tfhe_tpu_torch.models.boolean, tfhe_tpu_torch.core.packing, tfhe_tpu_torch.core.seeded, "
-        "tfhe_tpu_torch.models.glwe_matmul, tfhe_tpu_torch.noise, tfhe_tpu_torch.ml.common, "
-        "tfhe_tpu_torch.ml.quantization, tfhe_tpu_torch.ml.linear, tfhe_tpu_torch.native, "
-        "tfhe_tpu_torch.utils.keccak, tfhe_tpu_torch.utils.serialization, tfhe_tpu_torch.utils.keycache, "
-        "tfhe_tpu_torch.api, tfhe_tpu_torch.api.types, tfhe_tpu_torch.api.acl, tfhe_tpu_torch.api.handles, "
-        "tfhe_tpu_torch.api.secp256k1, tfhe_tpu_torch.api.attestation, tfhe_tpu_torch.api.mlkem, "
-        "tfhe_tpu_torch.api.shamir, tfhe_tpu_torch.api.kms, tfhe_tpu_torch.api.public_key, "
-        "tfhe_tpu_torch.api.threshold, tfhe_tpu_torch.api.compact_pke, tfhe_tpu_torch.api.zkpok, "
-        "tfhe_tpu_torch.api.costs, tfhe_tpu_torch.api.instance, tfhe_tpu_torch.api.serve, "
-        "tfhe_tpu_torch.api.client, tfhe_tpu_torch.ml, tfhe_tpu_torch.ml.serialization, "
-        "tfhe_tpu_torch.ml.quantized_module, tfhe_tpu_torch.ml.quantized_ops, tfhe_tpu_torch.ml.onnx_frontend, "
-        "tfhe_tpu_torch.ml.torch_export, tfhe_tpu_torch.ml.torch_models, tfhe_tpu_torch.ml.fhe_pipeline, "
-        "tfhe_tpu_torch.ml.qat_fhe, tfhe_tpu_torch.ml.base, tfhe_tpu_torch.ml.sklearn, tfhe_tpu_torch.ml.zoo, "
-        "tfhe_tpu_torch.ml.tree, tfhe_tpu_torch.ml.deploy, tfhe_tpu_torch.ml.hybrid_server, "
-        "tfhe_tpu_torch.ml.hybrid, tfhe_tpu_torch.ml.lora, tfhe_tpu_torch.ml.pandas, "
-        "tfhe_tpu_torch.ml.p_error_search, tfhe_tpu_torch.utils.profiling, tfhe_tpu_torch.rng, "
-        "tfhe_tpu_torch.ops.polynomial, tfhe_tpu_torch.ops, tfhe_tpu_torch.parallel, tfhe_tpu_torch.parallel.mesh, "
-        "tfhe_tpu_torch.parallel.sharded, tfhe_tpu_torch.parallel.ntt_sharded, tfhe_tpu_torch.parallel.multihost, "
-        "tfhe_tpu_torch.parallel.launch; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn', 'pandas')); "
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tfhe_tpu', 'sklearn', 'pandas'))\n"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -14,3 +14,6 @@ the kernel's plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+from tfhe_tpu_torch import params as params
+from tfhe_tpu_torch import rng as rng

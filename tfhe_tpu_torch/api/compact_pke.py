@@ -92,17 +92,18 @@ class CompactCiphertextList:
     n_values: int
 
 
-def gen_compact_pke_keys(ck: ClientKey, pke: PkeParams, rng: FheRng) -> CompactPkeKeySet:
+def gen_compact_pke_keys(ck: ClientKey, pke: PkeParams, rng: FheRng, n_rows: int | None = None) -> CompactPkeKeySet:
     """Generate the PKE keypair + casting keyswitch key on the client key's
-    device (draw order: PKE secret, public key, casting key).
+    device (draw order: PKE secret, public key, casting key). The public
+    key holds n_rows zero encryptions (default, as for 0, k*N + 128).
 
     The PKE secret never leaves this function -- only the public key and
     the casting KSK (encrypted under the COMPUTE key) are needed
     afterwards, exactly the reference's key-material split."""
     dev = ck.device
-    engine = get_folded_engine(pke.polynomial_size, dev)
+    engine = get_folded_engine(pke.polynomial_size, device=dev)
     pke_sk = gen_glwe_secret_key(rng, pke.glwe_dimension, pke.polynomial_size)
-    m = pke.glwe_dimension * pke.polynomial_size + 128
+    m = n_rows or (pke.glwe_dimension * pke.polynomial_size + 128)
     pk = encrypt_glwe(
         pke_sk,
         torch.zeros((m, pke.polynomial_size), dtype=torch.int64, device=dev),

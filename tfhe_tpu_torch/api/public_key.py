@@ -42,13 +42,15 @@ def binary_combination(r: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return prod.reshape(*r.shape[:-1], w)
 
 
-def gen_public_key(ck: ClientKey, rng: FheRng) -> CompactPublicKey:
-    """M = big_n + 128 zero-encryptions under the big key, on the client
-    key's device."""
+def gen_public_key(ck: ClientKey, rng: FheRng, n_rows: int | None = None) -> CompactPublicKey:
+    """M = n_rows (default big_n + 128) zero-encryptions under the big key,
+    on the client key's device."""
     p = ck.params
+    if n_rows is None:
+        n_rows = p.big_lwe_dimension + 128
     zeros = encrypt_lwe(
         ck.big_lwe_key,
-        torch.zeros((p.big_lwe_dimension + 128,), dtype=torch.int64, device=ck.device),
+        torch.zeros((n_rows,), dtype=torch.int64, device=ck.device),
         rng,
         p.glwe_noise,
     )

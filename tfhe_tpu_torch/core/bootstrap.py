@@ -73,11 +73,11 @@ def uses_fused_cmux(bsk: BootstrapKey, k1: int) -> bool:
     return bsk.gadget.level == 1 and bsk.gadget.base_log <= 31 and k1 == 2
 
 
-def blind_rotate(lut: torch.Tensor, lwe_ct: torch.Tensor, bsk: BootstrapKey, engine, cmux=cmux_steps) -> torch.Tensor:
+def blind_rotate(lut: torch.Tensor, lwe_ct: torch.Tensor, bsk: BootstrapKey, engine, *, cmux=cmux_steps) -> torch.Tensor:
     """Rotate the LUT accumulator by the mod-switched phase of lwe_ct.
     lut (k+1, N) or (..., k+1, N); lwe_ct (..., n+1) -> (..., k+1, N).
-    `cmux` is the fused step function (cmux_steps_plain to force the
-    plain version on the card)."""
+    `cmux` (keyword-only) is the fused step function (cmux_steps_plain to
+    force the plain version on the card)."""
     n_poly = bsk.poly_size
     two_n = 2 * n_poly
     ms = mod_switch(lwe_ct, int(math.log2(two_n)))
@@ -106,11 +106,11 @@ def _blind_rotate_fused(acc, a_steps, bsk: BootstrapKey, engine, cmux=cmux_steps
     return out.reshape(*batch, 2, n_poly)
 
 
-def programmable_bootstrap(lwe_ct, lut, bsk: BootstrapKey, engine, cmux=cmux_steps) -> torch.Tensor:
+def programmable_bootstrap(lwe_ct, lut, bsk: BootstrapKey, engine, *, cmux=cmux_steps) -> torch.Tensor:
     """Blind rotate + sample extract: (..., n+1) -> (..., kN+1)."""
-    return sample_extract(blind_rotate(lut, lwe_ct, bsk, engine, cmux), 0)
+    return sample_extract(blind_rotate(lut, lwe_ct, bsk, engine, cmux=cmux), 0)
 
 
-def keyswitch_pbs(big_lwe_ct, lut, bsk: BootstrapKey, ksk, engine, cmux=cmux_steps) -> torch.Tensor:
+def keyswitch_pbs(big_lwe_ct, lut, bsk: BootstrapKey, ksk, engine, *, cmux=cmux_steps) -> torch.Tensor:
     """Keyswitch down to the small key, then PBS."""
-    return programmable_bootstrap(keyswitch(big_lwe_ct, ksk), lut, bsk, engine, cmux)
+    return programmable_bootstrap(keyswitch(big_lwe_ct, ksk), lut, bsk, engine, cmux=cmux)

@@ -128,11 +128,15 @@ def uses_fused_group_steps(bsk: MultiBitBootstrapKey, k1: int) -> bool:
     return bsk.gadget.level == 1 and bsk.gadget.base_log <= 31 and k1 == 2
 
 
-def multibit_blind_rotate(lut, lwe_ct, bsk: MultiBitBootstrapKey, engine, steps=group_steps) -> torch.Tensor:
+def multibit_blind_rotate(
+    lut, lwe_ct, bsk: MultiBitBootstrapKey, engine, table=None, *, steps=group_steps
+) -> torch.Tensor:
     """Rotate the LUT accumulator by the mod-switched phase of lwe_ct over
     n/g aggregated-GGSW steps. lut (k+1, N) or (..., k+1, N); lwe_ct
-    (..., n+1) -> (..., k+1, N). `steps` is the fused group-step function
-    (group_steps_plain to force the plain version on the card)."""
+    (..., n+1) -> (..., k+1, N). `table` is the monomial_x_table to use
+    (default bsk.rot_table, else one built from `engine`). `steps`
+    (keyword-only) is the fused group-step function (group_steps_plain to
+    force the plain version on the card)."""
     n_poly = bsk.poly_size
     two_n = 2 * n_poly
     ms = mod_switch(lwe_ct, int(math.log2(two_n)))
@@ -140,7 +144,8 @@ def multibit_blind_rotate(lut, lwe_ct, bsk: MultiBitBootstrapKey, engine, steps=
     b_t = ms[..., -1]
     acc = negacyclic_monomial_rotate(lut, (two_n - b_t)[..., None])
     acc = acc.expand(*b_t.shape, lut.shape[-2], n_poly)
-    table = bsk.rot_table if bsk.rot_table is not None else monomial_x_table(engine)
+    if table is None:
+        table = bsk.rot_table if bsk.rot_table is not None else monomial_x_table(engine)
     if uses_fused_group_steps(bsk, lut.shape[-2]):
         batch = acc.shape[:-2]
         flat = acc.reshape(-1, 2, n_poly).contiguous()
@@ -164,11 +169,15 @@ def multibit_blind_rotate(lut, lwe_ct, bsk: MultiBitBootstrapKey, engine, steps=
     return acc
 
 
-def multibit_programmable_bootstrap(lwe_ct, lut, bsk: MultiBitBootstrapKey, engine, steps=group_steps) -> torch.Tensor:
+def multibit_programmable_bootstrap(
+    lwe_ct, lut, bsk: MultiBitBootstrapKey, engine, *, steps=group_steps
+) -> torch.Tensor:
     """Multi-bit PBS: blind rotate (n/g steps) + sample extract."""
-    return sample_extract(multibit_blind_rotate(lut, lwe_ct, bsk, engine, steps), 0)
+    return sample_extract(multibit_blind_rotate(lut, lwe_ct, bsk, engine, steps=steps), 0)
 
 
-def multibit_keyswitch_pbs(big_lwe_ct, lut, bsk: MultiBitBootstrapKey, ksk, engine, steps=group_steps) -> torch.Tensor:
+def multibit_keyswitch_pbs(
+    big_lwe_ct, lut, bsk: MultiBitBootstrapKey, ksk, engine, *, steps=group_steps
+) -> torch.Tensor:
     """Keyswitch down to the small key, then multi-bit PBS."""
-    return multibit_programmable_bootstrap(keyswitch(big_lwe_ct, ksk), lut, bsk, engine, steps)
+    return multibit_programmable_bootstrap(keyswitch(big_lwe_ct, ksk), lut, bsk, engine, steps=steps)

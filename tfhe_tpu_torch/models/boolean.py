@@ -68,7 +68,7 @@ def keygen(params: BooleanParams, seed: int = 0, device=None) -> tuple[ClientKey
     BSK, KSK (big -> small)."""
     dev = _device.resolve(device)
     rng = FheRng(seed, dev)
-    engine = get_folded_engine(params.polynomial_size, dev)
+    engine = get_folded_engine(params.polynomial_size, device=dev)
     glwe_sk = gen_glwe_secret_key(rng, params.glwe_dimension, params.polynomial_size)
     small_sk = gen_lwe_secret_key(rng, params.lwe_dimension)
     big_sk = glwe_to_lwe_secret_key(glwe_sk)
@@ -101,7 +101,7 @@ def _gate_lut(params: BooleanParams, device) -> torch.Tensor:
 
 
 def _bootstrap(sk: ServerKey, ct: torch.Tensor) -> torch.Tensor:
-    engine = get_folded_engine(sk.params.polynomial_size, ct.device)
+    engine = get_folded_engine(sk.params.polynomial_size, device=ct.device)
     big = programmable_bootstrap(ct, _gate_lut(sk.params, ct.device), sk.bsk, engine)
     return keyswitch(big, sk.ksk)
 

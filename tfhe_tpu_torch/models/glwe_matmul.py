@@ -91,7 +91,7 @@ def create_private_key(params: MatmulParams, seed: int = 0, device=None) -> Matm
     packing keyswitch key."""
     dev = _device.resolve(device)
     rng = FheRng(seed, dev)
-    engine = get_folded_engine(params.polynomial_size, dev)
+    engine = get_folded_engine(params.polynomial_size, device=dev)
     glwe_key = gen_glwe_secret_key(rng, params.glwe_dimension, params.polynomial_size)
     post_key = gen_glwe_secret_key(rng, params.glwe_dimension, params.polynomial_size)
     pksk = gen_packing_keyswitch_key(
@@ -118,7 +118,7 @@ def encrypt_matrix(pkey: MatmulPrivateKey, matrix, rng: FheRng | None = None, se
     dev = pkey.device
     if rng is None:
         rng = FheRng(seed, dev)
-    engine = get_folded_engine(n, dev)
+    engine = get_folded_engine(n, device=dev)
     m = _as_u64_tensor(matrix, dev)
     r, c = m.shape
     n_chunks = -(-c // n)
@@ -128,13 +128,16 @@ def encrypt_matrix(pkey: MatmulPrivateKey, matrix, rng: FheRng | None = None, se
     return EncryptedMatrix(glwes=glwes, params=p, n_valid=c, shape=(r, c))
 
 
-def prepare_clear_weights(params: MatmulParams, clear, device=None) -> PreparedClearMatrix:
+def prepare_clear_weights(
+    params: MatmulParams, clear, n_valid: int | None = None, *, device=None
+) -> PreparedClearMatrix:
     """Forward-transform a clear weight matrix (C, O) of small signed ints
-    once, on `device` (default "cuda"). Checks the CRT reconstruction
-    bound: each output coefficient sums n_chunks products of full-width
-    ciphertext words with the weights."""
+    once, on `device` (keyword-only, default "cuda"). Checks the CRT
+    reconstruction bound: each output coefficient sums n_chunks products
+    of full-width ciphertext words with the weights. `n_valid` is accepted
+    and unused, as in the JAX package."""
     n = params.polynomial_size
-    engine = get_folded_engine(n, device)
+    engine = get_folded_engine(n, device=device)
     w = clear.detach().cpu().numpy() if isinstance(clear, torch.Tensor) else np.asarray(clear)
     c, o = w.shape
     n_chunks = -(-c // n)
@@ -155,7 +158,7 @@ def prepare_clear_weights(params: MatmulParams, clear, device=None) -> PreparedC
 def matrix_multiplication(enc: EncryptedMatrix, clear, pkey: MatmulPrivateKey) -> CompressedResultMatrix:
     """enc (R, C) x clear (C, O) -> compressed encrypted result (R, O).
     clear: a small signed int matrix or a PreparedClearMatrix."""
-    engine = get_folded_engine(enc.params.polynomial_size, enc.glwes.device)
+    engine = get_folded_engine(enc.params.polynomial_size, device=enc.glwes.device)
     if not isinstance(clear, PreparedClearMatrix):
         clear = prepare_clear_weights(enc.params, clear, device=enc.glwes.device)
     return _matmul_prepared(enc, clear, pkey, engine)
@@ -195,7 +198,7 @@ def _matmul_prepared(
 def decrypt_matrix(result: CompressedResultMatrix, pkey: MatmulPrivateKey) -> torch.Tensor:
     """Decrypt to signed int64 (R, O) (negative with signed weights)."""
     p = result.params
-    engine = get_folded_engine(p.polynomial_size, result.data.device)
+    engine = get_folded_engine(p.polynomial_size, device=result.data.device)
     r, o = result.shape
     ct = _u64.u32(result.data) << (64 - result.n_bits_out)  # back to q = 2^64
     phase = decrypt_glwe(pkey.post_key, ct, engine).reshape(r, -1)[:, :o]

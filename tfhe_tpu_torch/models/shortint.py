@@ -101,7 +101,7 @@ def keygen(
     if multibit_group is None:
         multibit_group = multibit_group_of(params)
     dev = _device.resolve(device)
-    engine = get_folded_engine(params.polynomial_size, dev)
+    engine = get_folded_engine(params.polynomial_size, device=dev)
     rng = FheRng(seed, dev)
     glwe_sk = gen_glwe_secret_key(rng, params.glwe_dimension, params.polynomial_size)
     small_sk = gen_lwe_secret_key(rng, params.lwe_dimension)
@@ -120,7 +120,7 @@ def keygen(
 
 
 def engine_for(params: ShortintParams, device=None):
-    return get_folded_engine(params.polynomial_size, device)
+    return get_folded_engine(params.polynomial_size, device=device)
 
 
 # -- client side --------------------------------------------------------------

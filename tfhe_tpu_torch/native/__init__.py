@@ -3,7 +3,8 @@
 The reference keeps its host-native work in Rust (keccak handle hashing,
 secp256k1); this package compiles the equivalent C kernels (`native.c`,
 the JAX package's source without its bit-pack codec, which the port
-keeps in numpy in core/seeded.py) with `cc` on first use into
+keeps in numpy in core/seeded.py and re-exports here as `bitpack` /
+`bitunpack`) with `cc` on first use into
 `tfhe_tpu_torch/_build/libtfhe_native-<hash>.so` (pybind11 is not
 in the base image, hence ctypes), never at import and never beside the
 source. Falls back to pure python transparently if no compiler is
@@ -17,6 +18,8 @@ import hashlib
 import os
 import subprocess
 import tempfile
+
+from tfhe_tpu_torch.core.seeded import bitpack as bitpack, bitunpack as bitunpack
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "native.c")

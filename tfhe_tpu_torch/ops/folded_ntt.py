@@ -316,9 +316,10 @@ class GarnerConsts:
 class FoldedCrtEngine:
     """Exact negacyclic polymul mod 2^64 over a CRT prime set on one
     device: 2 to 4 ascending primes, default_primes() unless `primes` is
-    given (FOLDED_PRIMES, or FOLDED_PRIMES_4 with three digit planes)."""
+    given (FOLDED_PRIMES, or FOLDED_PRIMES_4 with three digit planes).
+    `device` (keyword-only, default "cuda") is where its tables live."""
 
-    def __init__(self, n: int, device: torch.device, primes=None):
+    def __init__(self, n: int, primes=None, *, device=None):
         if primes is None:
             primes = default_primes()
         assert n & (n - 1) == 0
@@ -326,10 +327,10 @@ class FoldedCrtEngine:
         # ascending: the Garner's lazy Horner bound needs v_j < p_j < p_i (j < i)
         assert tuple(primes) == tuple(sorted(primes))
         self.n = n
-        self.device = device
+        self.device = _device.resolve(device)
         self.primes = tuple(primes)
         self.n_primes = len(self.primes)
-        self.ntts = [FoldedNtt(p, n, device) for p in self.primes]
+        self.ntts = [FoldedNtt(p, n, self.device) for p in self.primes]
         assert len({ntt.na for ntt in self.ntts}) == 1, "uniform planes"
         prod = 1
         for p in self.primes:
@@ -543,12 +544,13 @@ class FoldedCrtEngine:
 
 @functools.lru_cache(maxsize=None)
 def _engine_cached(n: int, device: str, primes: tuple) -> FoldedCrtEngine:
-    return FoldedCrtEngine(n, torch.device(device), primes)
+    return FoldedCrtEngine(n, primes, device=device)
 
 
-def get_folded_engine(n: int, device=None, primes=None) -> FoldedCrtEngine:
-    """The engine for polynomial size n on `device` (default "cuda") over
-    `primes` (default default_primes(), resolved before the cache key)."""
+def get_folded_engine(n: int, primes=None, *, device=None) -> FoldedCrtEngine:
+    """The engine for polynomial size n over `primes` (default
+    default_primes(), resolved before the cache key) on `device`
+    (keyword-only, default "cuda"); one engine per (n, device, primes)."""
     dev = _device.resolve(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)

@@ -33,6 +33,7 @@ from tfhe_tpu_torch import _device, _u64
 # NTT-friendly primes: 2^14 | p-1, so negacyclic transforms up to N=8192.
 # p1 = 15*2^27+1, p2 = 27*2^26+1, p3 = 63*2^25+1; all < 2^31.
 DEFAULT_PRIMES = (2013265921, 1811939329, 2113929217)
+DEFAULT_LIMB_BITS = 16  # the JAX package's; kept for its call order, unused by the CRT
 
 
 def _is_prime(n: int) -> bool:
@@ -145,12 +146,11 @@ def fntt(a: torch.Tensor, psi_rev, p: int) -> torch.Tensor:
     return a
 
 
-def intt(f: torch.Tensor, psi_inv_rev, n_inv: int, p: int) -> torch.Tensor:
+def intt(a: torch.Tensor, psi_inv_rev, n_inv: int, p: int) -> torch.Tensor:
     """Inverse negacyclic NTT (Gentleman-Sande, bit-reversed -> natural)."""
-    n = f.shape[-1]
-    lead = f.shape[:-1]
-    psi_inv_rev = _as_table(psi_inv_rev, f)
-    a = f
+    n = a.shape[-1]
+    lead = a.shape[:-1]
+    psi_inv_rev = _as_table(psi_inv_rev, a)
     t, m = 1, n
     while m > 1:
         h = m // 2
@@ -244,19 +244,26 @@ class NegacyclicEngine:
     """Exact negacyclic polymul mod 2^64: (small int poly) x (u64 torus
     poly) over a 3-prime CRT. `forward_u64` transforms the u64 operand,
     `forward_small` the small one; products accumulate in the transform
-    domain and `backward` reconstructs them. `device` is where its tables
-    live (default "cuda"; pass "cpu" to run without a card)."""
+    domain and `backward` reconstructs them. `limb_bits` is stored as the
+    JAX package stores it and changes nothing. `device` (keyword-only) is
+    where its tables live (default "cuda"; pass "cpu" to run without a
+    card)."""
 
     def __init__(
         self,
         n: int,
         primes: Sequence[int] = DEFAULT_PRIMES,
+        limb_bits: int = DEFAULT_LIMB_BITS,
         ntt_impl: str = "four_step",
+        *,
         device=None,
     ):
         assert n & (n - 1) == 0, "N must be a power of two"
         self.n = n
         self.primes = tuple(primes)
+        self.limb_bits = limb_bits
+        self.n_limbs = 64 // limb_bits
+        assert 64 % limb_bits == 0
         self.device = _device.resolve(device)
         tabs = [_ntt_tables(p, n) for p in self.primes]
         self._psi = [torch.from_numpy(t[0]).to(self.device) for t in tabs]
@@ -353,17 +360,22 @@ class NegacyclicEngine:
 
 
 @functools.lru_cache(maxsize=None)
-def _engine_cached(n: int, device: str, primes: tuple, ntt_impl: str) -> NegacyclicEngine:
-    return NegacyclicEngine(n, primes, ntt_impl, torch.device(device))
+def _engine_cached(n: int, device: str, primes: tuple, limb_bits: int, ntt_impl: str) -> NegacyclicEngine:
+    return NegacyclicEngine(n, primes, limb_bits, ntt_impl, device=device)
 
 
 def get_engine(
-    n: int, device=None, primes: Sequence[int] = DEFAULT_PRIMES, ntt_impl: str = "four_step"
+    n: int,
+    primes: Sequence[int] = DEFAULT_PRIMES,
+    limb_bits: int = DEFAULT_LIMB_BITS,
+    ntt_impl: str = "four_step",
+    *,
+    device=None,
 ) -> NegacyclicEngine:
-    """The cached engine for (n, device, primes, ntt_impl); device defaults
-    to "cuda", as the port's other entry points. (The reference's unused
-    `limb_bits` is not carried over.)"""
-    return _engine_cached(n, str(_device.resolve(device)), tuple(primes), ntt_impl)
+    """The cached engine for (n, device, primes, limb_bits, ntt_impl);
+    `device` (keyword-only) defaults to "cuda", as the port's other entry
+    points."""
+    return _engine_cached(n, str(_device.resolve(device)), tuple(primes), limb_bits, ntt_impl)
 
 
 def negacyclic_polymul_reference(a, b, q: int = 2**64) -> np.ndarray:

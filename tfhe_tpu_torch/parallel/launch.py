@@ -227,7 +227,7 @@ def ntt_job(ctx: RankContext, state: dict, n_poly: int, x) -> dict:
     from tfhe_tpu_torch.parallel.multihost import collective_stats
     from tfhe_tpu_torch.parallel.ntt_sharded import make_sharded_ntt
 
-    engine = get_folded_engine(n_poly, ctx.device)
+    engine = get_folded_engine(n_poly, device=ctx.device)
     mesh = make_mesh(1, ctx.world, device=ctx.device)
     fwd, inv = make_sharded_ntt(engine, mesh)
     x_loc = mesh.local_block(_tensor(x, ctx), 0, "model")

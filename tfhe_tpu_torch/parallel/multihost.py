@@ -118,12 +118,13 @@ def replicate_global(mesh: Mesh, tree):
     return global_put(mesh, (), tree)
 
 
-def shard_batch_global(mesh: Mesh, host_batch) -> torch.Tensor:
-    """This rank's rows of its host's batch. Each host contributes its own
-    rows, which its ranks split over "data" (JAX: the process-local batch
-    of a ("host", "data")-sharded global array; the global batch is the
-    host-order concatenation)."""
-    return global_put(mesh, ("data",), host_batch)
+def shard_batch_global(mesh: Mesh, local_batch, n_model_axes: int = 0) -> torch.Tensor:
+    """This rank's rows of its host's batch `local_batch`. Each host
+    contributes its own rows, which its ranks split over "data" (JAX: the
+    process-local batch of a ("host", "data")-sharded global array; the
+    global batch is the host-order concatenation). `n_model_axes` is
+    accepted and unused, as in the JAX package."""
+    return global_put(mesh, ("data",), local_batch)
 
 
 def make_multihost_pbs_step(mesh: Mesh, engine, ks_gadget, pbs_gadget, bsk_shift: int):

@@ -51,6 +51,9 @@ def default_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "tfhe_tpu_torch_keys")
 
 
+DEFAULT_DIR = default_dir()  # the JAX package's name; callers read default_dir() at call time
+
+
 def _effective_group(params, multibit_group: int | None) -> int:
     """Mirror si.keygen's inference: MULTI_BIT_GROUP_N param sets imply
     their group; the cache key must agree no matter how callers spell it."""
