@@ -131,7 +131,8 @@ only the device events issued inside the recorded call. It
 prints the card, build time, per-kernel times beside their bounds,
 keygen seconds, PBS/s, transfers/s, gates/s, ms per matmul and Gmac/s,
 ms per encrypted inference, K3's times at 64, 128, 512 and 864
-ciphertexts and K4's at 64, 128 and 512 (`ms_by_batch`), K1's and K2's at the keygen, loop, boolean
+ciphertexts and K4's at 64, 128 and 512 (`ms_by_batch`; at 64, 128 and 512
+the wrappers' `.rows` must grow by the batch at each `.launches`), K1's and K2's at the keygen, loop, boolean
 and matmul shapes (`ms_by_shape`),
 ptxas's registers and spills, a `{"kernels": [...]}` line, and last a
 `{"ok": true, "device": {...}}` line. Any failure raises and exits
@@ -191,6 +192,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rotation_ms(wrapper, fn, batch: int, label: str) -> dict:
+    """cuda_ms of `fn`, one launch of the K3 or K4 wrapper on `batch`
+    ciphertexts, with the wrapper's counters read around it: every launch
+    counted, and `batch` rows counted for each."""
+    launches0, rows0 = wrapper.launches, wrapper.rows
+    ms = cuda_ms(fn, 3)
+    launches, rows = wrapper.launches - launches0, wrapper.rows - rows0
+    check(launches == 4 and rows == batch * launches,
+          f"{label}: {rows} rows over {launches} launches at {batch} ciphertexts a launch")
+    return dict(ms=ms, launches=launches, rows=rows)
 
 
 def self_device_us(ev) -> float:
@@ -886,6 +899,7 @@ def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dic
     from tfhe_tpu_torch.ml.lora import LoraTrainer, LoraTraining
     from tfhe_tpu_torch.ml.pandas import DataFrameClient, EncryptedDataFrame
     from tfhe_tpu_torch.models import integer as ri
+    from tfhe_tpu_torch.models import shortint as si
     from tfhe_tpu_torch.ops import multibit_cuda as mbc
     from tfhe_tpu_torch.utils import serialization
     from tfhe_tpu_torch.utils.profiling import Timings, device_trace
@@ -1084,8 +1098,8 @@ def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dic
             k4_calls[acc.shape[0]] = (acc, a, args, res.clone())
         return res
 
-    pbs = ri.multibit_programmable_bootstrap
-    ri.multibit_programmable_bootstrap = lambda ct, lut, bsk, engine: pbs(ct, lut, bsk, engine, steps=k4_steps)
+    rotate = si.multibit_blind_rotate  # what the radix PBS (shortint._keyswitch_pbs) calls
+    si.multibit_blind_rotate = lambda lut, ct, bsk, engine: rotate(lut, ct, bsk, engine, steps=k4_steps)
     ri._pbs.rows = 0
     try:
         before = read_counts()
@@ -1093,7 +1107,7 @@ def ml_deploy_phase(dev, reset_counts, read_counts, mm_params, df_params) -> dic
             merged = el.merge(er, on="k")
         merge_counts = delta(before)
     finally:
-        ri.multibit_programmable_bootstrap = pbs
+        si.multibit_blind_rotate = rotate
     n_pbs = ri._pbs.rows
     paths["pandas"] = read_counts()
     match = dict(zip(rk.tolist(), right["b"].tolist()))
@@ -1976,7 +1990,8 @@ def main() -> int:
     acc0 = negacyclic_monomial_rotate(lut3, (2 * n - ms_[..., -1])[..., None]).contiguous()
     e_all = ms_[..., :-1].t().to(torch.int32).contiguous()
     args = (acc0, e_all, sk.bsk.bsk_ntt, sk.bsk.rot_table, eng, base_log, sk.bsk.shift)
-    k3_ms = cuda_ms(lambda: brc.cmux_steps(*args), 3)
+    k3_at_batch = rotation_ms(brc.cmux_steps, lambda: brc.cmux_steps(*args), BATCH, "K3")
+    k3_ms = k3_at_batch["ms"]
     plain_out = None
 
     def k3_plain():
@@ -1997,10 +2012,10 @@ def main() -> int:
     k3_by_batch = {}
     for nb in (64, 128):
         acc_b, e_b = acc0[:nb].contiguous(), e_all[:, :nb].contiguous()
-        t_b = cuda_ms(lambda: brc.cmux_steps(acc_b, e_b, *args[2:]), 3)
-        k3_by_batch[str(nb)] = dict(zip(("ms", "bound_ms", "bound_by"), (t_b, *k3_bound(nb))))
+        t_b = rotation_ms(brc.cmux_steps, lambda: brc.cmux_steps(acc_b, e_b, *args[2:]), nb, "K3")
+        k3_by_batch[str(nb)] = dict(**t_b, **dict(zip(("bound_ms", "bound_by"), k3_bound(nb))))
     b, o = k3_bound(BATCH)
-    k3_by_batch[str(BATCH)] = dict(ms=k3_ms, bound_ms=b, bound_by=o)
+    k3_by_batch[str(BATCH)] = dict(**k3_at_batch, bound_ms=b, bound_by=o)
     kern["K3"] = dict(
         name="cmux_steps", route="cuda", source="tfhe_tpu_torch/csrc/blind_rotate.cu",
         replaces="tfhe_tpu/ops/pallas_blind_rotate.py:279", max_abs_err=max(k3_err, pbs_err, *k3s_err.values()),
@@ -2008,7 +2023,8 @@ def main() -> int:
         shape=f"{BATCH} ct x {steps} steps", ms_by_batch=k3_by_batch,
     )
     print("K3 by batch: " + ", ".join(
-        f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']})" for nb, v in k3_by_batch.items()
+        f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']}; {v['rows']} rows over "
+        f"{v['launches']} launches)" for nb, v in k3_by_batch.items()
     ), flush=True)
     del ck, sk, c, ident, tri, prod, small, acc0, args, plain_out, rot_table
 
@@ -2072,7 +2088,8 @@ def main() -> int:
     acc0 = negacyclic_monomial_rotate(lut3, (2 * n - ms_[..., -1])[..., None]).contiguous()
     a_all = ms_[..., :-1].t().to(torch.int32).contiguous()
     k4_args = (sk.bsk.bsk_ntt, sk.bsk.rot_table, eng, base_log, sk.bsk.shift, g3)
-    k4_ms = cuda_ms(lambda: mbc.group_steps(acc0, a_all, *k4_args), 3)
+    k4_at_batch = rotation_ms(mbc.group_steps, lambda: mbc.group_steps(acc0, a_all, *k4_args), BATCH, "K4")
+    k4_ms = k4_at_batch["ms"]
     k4_out = mbc.group_steps(acc0, a_all, *k4_args)
     plain_out = None
 
@@ -2094,10 +2111,10 @@ def main() -> int:
     ms_by_batch = {}
     for nb in (64, 128):
         acc_b, a_b = acc0[:nb].contiguous(), a_all[:, :nb].contiguous()
-        t_b = cuda_ms(lambda: mbc.group_steps(acc_b, a_b, *k4_args), 3)
-        ms_by_batch[str(nb)] = dict(zip(("ms", "bound_ms", "bound_by"), (t_b, *k4_bound(nb))))
+        t_b = rotation_ms(mbc.group_steps, lambda: mbc.group_steps(acc_b, a_b, *k4_args), nb, "K4")
+        ms_by_batch[str(nb)] = dict(**t_b, **dict(zip(("bound_ms", "bound_by"), k4_bound(nb))))
     b, o = k4_bound(BATCH)
-    ms_by_batch[str(BATCH)] = dict(ms=k4_ms, bound_ms=b, bound_by=o)
+    ms_by_batch[str(BATCH)] = dict(**k4_at_batch, bound_ms=b, bound_by=o)
     kern["K4"] = dict(
         name="group_steps", route="cuda", source="tfhe_tpu_torch/csrc/multibit.cu",
         replaces="tfhe_tpu/ops/pallas_multibit.py:184",
@@ -2108,7 +2125,8 @@ def main() -> int:
     )
     print(f"K4 plain on 64 ct x {groups} groups: {k4_plain_ms:.1f} ms (kernel output equal, err {k4_err}); "
           "K4 by batch: " + ", ".join(
-              f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']})" for nb, v in ms_by_batch.items()
+              f"{nb} ct {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} by {v['bound_by']}; {v['rows']} rows over "
+              f"{v['launches']} launches)" for nb, v in ms_by_batch.items()
           ), flush=True)
     del small, acc0, a_all, k4_out, plain_out, ident, tri, prod
 

@@ -414,7 +414,25 @@ def test_timings_report_keys_match_reference():
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """Every thread is recorded: a span entered on a second thread, after
+    its request began, is in the trace with that request's id, beside the
+    calling thread's ops."""
+
+    def serve():
+        tprof.new_request()
+        with tprof.span("api.device_trace_test"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+
     with tprof.device_trace(str(tmp_path / "trace")) as path:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        t = threading.Thread(target=serve)
+        t.start()
+        t.join(timeout=60)
+    assert not t.is_alive()
     with open(path) as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    (ev,) = [e for e in events if e.get("name") == "api.device_trace_test"]
+    (mark,) = [e for e in events if e.get("name", "").startswith(tprof.REQUEST_MARK) and e["tid"] == ev["tid"]]
+    assert ev["args"]["request"] == mark["name"][len(tprof.REQUEST_MARK):]
+    assert ev["tid"] != threading.get_native_id()
+    assert any(e.get("name") == "aten::mm" and e.get("tid") == threading.get_native_id() for e in events)

@@ -11,8 +11,16 @@ with `convert.keys_from_reference`, and on the same input ciphertexts
 * the port's FheServer answers the JAX package's own FheClient: /health,
   /publickey, a full /input-proof submission (a JAX-serialized list and a
   proof that the JAX verifier accepts), a batched /evaluate, a verified
-  /public-decrypt, the full /user-decrypt protocol and the API-key check.
+  /public-decrypt, the full /user-decrypt protocol and the API-key check;
+* the port's spans (`utils/profiling`): off with no profiler session (no
+  range entered, SPANS unchanged), their nesting and self-time arithmetic
+  under one, one /evaluate's spans on the handler thread sharing a request
+  id in `device_trace`'s Chrome trace, and the LUT upload counter.
 """
+
+import json
+import threading
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -36,12 +44,14 @@ from tfhe_tpu_torch import params as tp
 from tfhe_tpu_torch.api import compact_pke as tcp
 from tfhe_tpu_torch.api import types as tty
 from tfhe_tpu_torch.api import zkpok as tzk
+from tfhe_tpu_torch.api.client import FheClient as PortClient
 from tfhe_tpu_torch.api.instance import create_instance
 from tfhe_tpu_torch.api.serve import FheServer
 from tfhe_tpu_torch.models import integer as tri
 from tfhe_tpu_torch.models import shortint as tsi
 from tfhe_tpu_torch.rng import FheRng
-from tfhe_tpu_torch.utils import keycache
+from tfhe_tpu_torch.utils import keycache, profiling
+from tfhe_tpu_torch.utils.profiling import SPANS, span
 
 C, U = "0x" + "11" * 20, "0x" + "22" * 20
 A, B = 177, 23
@@ -242,3 +252,105 @@ def test_api_key_is_checked(pair):
         assert FheClient(url, api_key="s3cret", timeout=30.0).health()["status"] == "ok"
     finally:
         srv.stop()
+
+
+# -- spans and counters -----------------------------------------------------------
+
+
+def _spans_state():
+    return SPANS.report(), SPANS.by_layer()
+
+
+def _evaluate_xors(client, pair):
+    """One batched /evaluate of two xors: a single PBS round."""
+    _, _, (ha, hb, _, _) = pair
+    a, b = "0x" + ha.hex(), "0x" + hb.hex()
+    return client.evaluate_many([("xor", [a, b]), ("xor", [b, a])])
+
+
+def test_spans_are_off_without_a_profiler_session(client, pair, monkeypatch):
+    """No session open: an /evaluate enters no profiler range on any thread
+    (a range raises, and the server would answer 500) and SPANS keeps its
+    numbers."""
+
+    def refuse(name):
+        raise AssertionError(f"span {name} entered a range with no profiler session open")
+
+    monkeypatch.setattr(profiling, "_Range", refuse)
+    before = _spans_state()
+    r = _evaluate_xors(client, pair)
+    assert r["batchedGroups"] == 1
+    with span("api.test"):
+        pass
+    assert _spans_state() == before
+
+
+def test_profiler_flag_is_seen_from_another_thread():
+    """Spans on the server's threads read torch's module-wide flag; a torch
+    that stopped setting it would turn them off without a word."""
+    from torch.autograd import profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        t = threading.Thread(target=lambda: seen.append(autograd_profiler._is_profiler_enabled))
+        t.start()
+        t.join(timeout=30)
+    assert not t.is_alive() and seen == [True]
+    assert autograd_profiler._is_profiler_enabled is False
+
+
+def test_span_self_time_is_duration_less_children():
+    from torch.profiler import ProfilerActivity, profile
+
+    @span("integer.spans_test_inner")
+    def inner():
+        time.sleep(0.02)
+
+    before = {k: (v.self_s, v.count) for k, v in SPANS.layers.items()}
+    with profile(activities=[ProfilerActivity.CPU]):
+        with span("api.spans_test_outer"):
+            time.sleep(0.01)
+            inner()
+            with span("wait.spans_test_wait"):
+                time.sleep(0.01)
+    rep = SPANS.report()
+    outer, child = rep["api.spans_test_outer"]["total_s"], rep["integer.spans_test_inner"]["total_s"]
+    wait = rep["wait.spans_test_wait"]["total_s"]
+    assert child >= 0.02 and wait >= 0.01 and outer >= child + wait + 0.01
+    d = {k: (SPANS.layers[k].self_s - before[k][0], SPANS.layers[k].count - before[k][1]) for k in before}
+    assert d["api"][1] == d["integer"][1] == d["wait"][1] == 1
+    assert d["api"][0] == pytest.approx(outer - child - wait, abs=2e-3)
+    assert d["integer"][0] == pytest.approx(child, abs=2e-3)
+    for layer, (self_s, _) in d.items():  # a layer's self time is within its spans' durations
+        assert self_s <= sum(v["total_s"] for k, v in rep.items() if k.startswith(layer + ".")) + 1e-3
+
+
+def test_evaluate_spans_share_a_request_id_in_device_trace(server, pair, tmp_path):
+    """One /evaluate from the port's client under device_trace: every span
+    of the server's handler thread carries the request's id and lies
+    inside its `api.request`; the client's span is on its own thread."""
+    port_client = PortClient(f"http://127.0.0.1:{server.port}", timeout=120.0)
+    before = SPANS.layers["api"].count
+    with profiling.device_trace(str(tmp_path)) as path:
+        _evaluate_xors(port_client, pair)
+    assert SPANS.layers["api"].count > before
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    (req,) = [e for e in events if e["name"] == "api.request"]
+    spans = [e for e in events if e["tid"] == req["tid"] and e["name"].split(".")[0] in SPANS.layers]
+    names = {e["name"] for e in spans}
+    assert {"api.read", "api.wave", "instance.gather", "instance.op", "integer.bitxor", "pbs.rotate",
+            "wait.lut_upload", "instance.put", "api.cost", "api.reply"} <= names
+    assert {e["args"].get("request") for e in spans} == {req["args"]["request"]}
+    for e in spans:  # nested under the request's own span, on its thread
+        assert req["ts"] <= e["ts"] and e["ts"] + e["dur"] <= req["ts"] + req["dur"] + 1
+    (post,) = [e for e in events if e["name"] == "client.post"]
+    assert post["tid"] != req["tid"] and "request" not in post["args"]
+
+
+def test_generate_lut_counts_each_upload():
+    n = tsi.generate_lut.uploads
+    tsi.generate_lut(tp.TOY_SHORTINT, lambda v: v, "cpu")
+    tsi.generate_lut_bivariate(tp.TOY_SHORTINT, lambda a, b: a * b, "cpu")
+    assert tsi.generate_lut.uploads == n + 2

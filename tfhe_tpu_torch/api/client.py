@@ -16,6 +16,8 @@ import time
 import urllib.error
 import urllib.request
 
+from tfhe_tpu_torch.utils.profiling import span
+
 
 class FheClient:
     def __init__(
@@ -74,6 +76,7 @@ class FheClient:
         req = urllib.request.Request(self.base + path, headers=self._headers())
         return self._request(req)
 
+    @span("client.post")
     def _post(self, path: str, body: dict, idempotent: bool = False):
         req = urllib.request.Request(
             self.base + path,

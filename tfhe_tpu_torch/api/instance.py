@@ -44,6 +44,7 @@ from tfhe_tpu_torch.models import shortint as si
 from tfhe_tpu_torch.params import ShortintParams
 from tfhe_tpu_torch.rng import FheRng
 from tfhe_tpu_torch.utils import serialization
+from tfhe_tpu_torch.utils.profiling import span
 
 
 class EncryptedInput:
@@ -460,6 +461,7 @@ class FhevmInstance:
             )
         return self._put(ebool, res, op, list(args[:2]))
 
+    @span("instance.op")
     def fhe_op(self, op: str, *args) -> bytes:
         """Execute FHE.<op> over handles/scalars, store and return the
         result handle (the coprocessor loop of SURVEY.md section 3.4)."""
@@ -642,55 +644,60 @@ class FhevmInstance:
         batch_key (mixed types/widths, ebool operands, scalar-left) fall
         back to per-op execution rather than asserting.
         """
-        keys = {self.batch_key(op, list(p)) for p in pairs}
-        if len(keys) != 1 or None in keys:
+        with span("instance.gather"):
+            keys = {self.batch_key(op, list(p)) for p in pairs}
+            batched = len(keys) == 1 and None not in keys
+        if not batched:
             return [self.fhe_op(op, *p) for p in pairs]
         if op == "select":
             return self._select_many(pairs)
-        ts, acts, bcts = [], [], []
-        for ha, hb in pairs:
-            t, a = self._get_radix(ha)
-            if isinstance(hb, bytes):
-                _, b = self._get_radix(hb)
-            else:
-                b = self._lift_scalar(int(hb), a.nbits)
-            ts.append(t)
-            acts.append(a)
-            bcts.append(b)
-        batch_a = ri.RadixCiphertext(
-            blocks=torch.stack([a.blocks for a in acts]),
-            params=self.params,
-            degrees=tuple(
-                max(a.degrees[i] for a in acts)
-                for i in range(acts[0].nblocks)
-            ),
-        )
-        batch_b = ri.RadixCiphertext(
-            blocks=torch.stack([b.blocks for b in bcts]),
-            params=self.params,
-            degrees=tuple(
-                max(b.degrees[i] for b in bcts)
-                for i in range(bcts[0].nblocks)
-            ),
-        )
-        if op in self.BINARY_OPS:
-            res = self.BINARY_OPS[op](self._sk, batch_a, batch_b)
-            out_t = ts
-        else:
-            res = self.CMP_OPS[op](self._sk, batch_a, batch_b)
-            out_t = [FHE_TYPES["ebool"]] * len(pairs)
-        handles = []
-        for i, t in enumerate(out_t):
+        with span("instance.gather"):
+            ts, acts, bcts = [], [], []
+            for ha, hb in pairs:
+                t, a = self._get_radix(ha)
+                if isinstance(hb, bytes):
+                    _, b = self._get_radix(hb)
+                else:
+                    b = self._lift_scalar(int(hb), a.nbits)
+                ts.append(t)
+                acts.append(a)
+                bcts.append(b)
+            batch_a = ri.RadixCiphertext(
+                blocks=torch.stack([a.blocks for a in acts]),
+                params=self.params,
+                degrees=tuple(
+                    max(a.degrees[i] for a in acts)
+                    for i in range(acts[0].nblocks)
+                ),
+            )
+            batch_b = ri.RadixCiphertext(
+                blocks=torch.stack([b.blocks for b in bcts]),
+                params=self.params,
+                degrees=tuple(
+                    max(b.degrees[i] for b in bcts)
+                    for i in range(bcts[0].nblocks)
+                ),
+            )
+        with span("instance.op"):
             if op in self.BINARY_OPS:
-                one = ri.RadixCiphertext(
-                    blocks=res.blocks[i], params=self.params, degrees=res.degrees
-                )
+                res = self.BINARY_OPS[op](self._sk, batch_a, batch_b)
+                out_t = ts
             else:
-                one = si.Ciphertext(
-                    ct=res.ct[i], params=self.params,
-                    degree=res.degree, noise_level=res.noise_level,
-                )
-            handles.append(self._put(t, one, op, list(pairs[i][:2])))
+                res = self.CMP_OPS[op](self._sk, batch_a, batch_b)
+                out_t = [FHE_TYPES["ebool"]] * len(pairs)
+        with span("instance.put"):
+            handles = []
+            for i, t in enumerate(out_t):
+                if op in self.BINARY_OPS:
+                    one = ri.RadixCiphertext(
+                        blocks=res.blocks[i], params=self.params, degrees=res.degrees
+                    )
+                else:
+                    one = si.Ciphertext(
+                        ct=res.ct[i], params=self.params,
+                        degree=res.degree, noise_level=res.noise_level,
+                    )
+                handles.append(self._put(t, one, op, list(pairs[i][:2])))
         return handles
 
     def _select_many(self, triples: list) -> list:
@@ -698,17 +705,6 @@ class FhevmInstance:
         one batch_key: ONE stacked-PBS device program for the whole group
         (ri.select broadcasts the cond block over the radix blocks, so a
         leading batch axis rides through unchanged)."""
-        conds = [self._get_bool(c) for c, _, _ in triples]
-        ts = [self._store[a][0] for _, a, _ in triples]
-        acts = [self._get_radix(a)[1] for _, a, _ in triples]
-        bcts = [self._get_radix(b)[1] for _, _, b in triples]
-        batch_c = si.Ciphertext(
-            ct=torch.stack([c.ct for c in conds]),
-            params=self.params,
-            degree=max(c.degree for c in conds),
-            noise_level=max(c.noise_level for c in conds),
-        )
-
         def stack(cts):
             return ri.RadixCiphertext(
                 blocks=torch.stack([x.blocks for x in cts]),
@@ -719,18 +715,31 @@ class FhevmInstance:
                 ),
             )
 
-        res = ri.select(self._sk, batch_c, stack(acts), stack(bcts))
-        return [
-            self._put(
-                t,
-                ri.RadixCiphertext(
-                    blocks=res.blocks[i], params=self.params, degrees=res.degrees
-                ),
-                "select",
-                list(triples[i]),
+        with span("instance.gather"):
+            conds = [self._get_bool(c) for c, _, _ in triples]
+            ts = [self._store[a][0] for _, a, _ in triples]
+            batch_a = stack([self._get_radix(a)[1] for _, a, _ in triples])
+            batch_b = stack([self._get_radix(b)[1] for _, _, b in triples])
+            batch_c = si.Ciphertext(
+                ct=torch.stack([c.ct for c in conds]),
+                params=self.params,
+                degree=max(c.degree for c in conds),
+                noise_level=max(c.noise_level for c in conds),
             )
-            for i, t in enumerate(ts)
-        ]
+        with span("instance.op"):
+            res = ri.select(self._sk, batch_c, batch_a, batch_b)
+        with span("instance.put"):
+            return [
+                self._put(
+                    t,
+                    ri.RadixCiphertext(
+                        blocks=res.blocks[i], params=self.params, degrees=res.degrees
+                    ),
+                    "select",
+                    list(triples[i]),
+                )
+                for i, t in enumerate(ts)
+            ]
 
     # -- internals --------------------------------------------------------------
 

@@ -30,7 +30,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from tfhe_tpu_torch.api import attestation, costs
 from tfhe_tpu_torch.api.instance import FhevmInstance
 from tfhe_tpu_torch.api.types import FHE_TYPES
-from tfhe_tpu_torch.utils import serialization
+from tfhe_tpu_torch.utils import profiling, serialization
+from tfhe_tpu_torch.utils.profiling import span
 
 
 class FheServer:
@@ -153,48 +154,52 @@ class FheServer:
         execution proceeds in dependency waves -- each wave runs every
         op whose operands already exist, batched per bucket."""
         inst = self.instance
-        reqs = [(o["op"], self._parse_args(o["args"])) for o in ops_body]
+        with span("api.read"):
+            reqs = [(o["op"], self._parse_args(o["args"])) for o in ops_body]
         out: list = [None] * len(reqs)
         cost = 0
         batched_groups = 0
         single_ops = 0
         done = [False] * len(reqs)
         while not all(done):
-            wave = [
-                i
-                for i, (op, args) in enumerate(reqs)
-                if not done[i]
-                and all(
-                    not isinstance(a, bytes) or a in inst._store for a in args
-                )
-            ]
-            if not wave:
-                raise ApiError(400, "op list references unknown handles")
-            buckets: dict[tuple, list[int]] = {}
-            singles: list[int] = []
-            for i in wave:
-                op, args = reqs[i]
-                key = inst.batch_key(op, args)
-                if key is None:
-                    singles.append(i)
-                else:
-                    buckets.setdefault(key, []).append(i)
+            with span("api.wave"):
+                wave = [
+                    i
+                    for i, (op, args) in enumerate(reqs)
+                    if not done[i]
+                    and all(
+                        not isinstance(a, bytes) or a in inst._store for a in args
+                    )
+                ]
+                if not wave:
+                    raise ApiError(400, "op list references unknown handles")
+                buckets: dict[tuple, list[int]] = {}
+                singles: list[int] = []
+                for i in wave:
+                    op, args = reqs[i]
+                    key = inst.batch_key(op, args)
+                    if key is None:
+                        singles.append(i)
+                    else:
+                        buckets.setdefault(key, []).append(i)
             for key, idxs in buckets.items():
                 if len(idxs) == 1:
                     singles.extend(idxs)
                     continue
                 op = reqs[idxs[0]][0]
                 hs = inst.fhe_op_many(op, [tuple(reqs[k][1]) for k in idxs])
-                for k, h in zip(idxs, hs):
-                    out[k] = h
-                    done[k] = True
-                    cost += self._op_cost(op, reqs[k][1])
+                with span("api.cost"):
+                    for k, h in zip(idxs, hs):
+                        out[k] = h
+                        done[k] = True
+                        cost += self._op_cost(op, reqs[k][1])
                 batched_groups += 1
             for i in singles:
                 op, args = reqs[i]
                 out[i] = inst.fhe_op(op, *args)
                 done[i] = True
-                cost += self._op_cost(op, args)
+                with span("api.cost"):
+                    cost += self._op_cost(op, args)
                 single_ops += 1
         return {
             "handles": ["0x" + h.hex() for h in out],
@@ -551,6 +556,7 @@ def _make_handler(server: FheServer):
                 self.headers.get("x-api-key", ""), server.api_key
             )
 
+        @span("api.reply")
         def _reply(self, code: int, obj):
             data = json.dumps(obj).encode()
             self.send_response(code)
@@ -558,6 +564,11 @@ def _make_handler(server: FheServer):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
+
+        @span("api.read")
+        def _body(self):
+            n = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(n) or b"{}")
 
         def do_GET(self):
             # auth first: unauthenticated callers learn nothing about routes
@@ -585,13 +596,18 @@ def _make_handler(server: FheServer):
                 self._reply(500, {"error": str(e)})
 
         def do_POST(self):
+            # one request id for every span of this request on this thread
+            profiling.new_request()
+            with span("api.request"):
+                self._post()
+
+        def _post(self):
             if not self._authed():
                 return self._reply(401, {"error": "unauthorized"})
             qfn = queueable.get(self.path)
             if qfn is not None:
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    body = json.loads(self.rfile.read(n) or b"{}")
+                    body = self._body()
                 except (ValueError, KeyError) as e:
                     return self._reply(400, {"error": f"bad request: {e}"})
                 job_id = server.jobs.submit(qfn, body)
@@ -600,8 +616,7 @@ def _make_handler(server: FheServer):
             if fn is None:
                 return self._reply(404, {"error": f"no route {self.path}"})
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                body = json.loads(self.rfile.read(n) or b"{}")
+                body = self._body()
                 self._reply(200, fn(body))
             except ApiError as e:
                 self._reply(e.code, {"error": e.msg})

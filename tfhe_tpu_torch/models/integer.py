@@ -27,14 +27,13 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import _device, _u64
-from tfhe_tpu_torch.core.bootstrap import programmable_bootstrap
-from tfhe_tpu_torch.core.lwe import decrypt_lwe, encrypt_lwe, keyswitch, trivial_lwe
-from tfhe_tpu_torch.core.multibit import MultiBitBootstrapKey, multibit_programmable_bootstrap
+from tfhe_tpu_torch.core.lwe import decrypt_lwe, encrypt_lwe, trivial_lwe
 from tfhe_tpu_torch.models import shortint as si
 from tfhe_tpu_torch.models.shortint import ClientKey, ServerKey
 from tfhe_tpu_torch.params import ShortintParams
 from tfhe_tpu_torch.rng import FheRng
 from tfhe_tpu_torch.torus import decode, encode
+from tfhe_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -74,7 +73,8 @@ def _u64_values(values, device) -> torch.Tensor:
     an int64 tensor of u64 bits on `device`."""
     if isinstance(values, torch.Tensor):
         return values.to(device=device, dtype=torch.int64)
-    return _u64.u64_from_numpy(np.asarray(values, dtype=np.uint64)).to(device)
+    with span("wait.scalar_upload"):
+        return _u64.u64_from_numpy(np.asarray(values, dtype=np.uint64)).to(device)
 
 
 def _split_blocks(values: torch.Tensor, nb: int, params: ShortintParams) -> torch.Tensor:
@@ -161,7 +161,8 @@ def _exact_degrees(params: ShortintParams, values: torch.Tensor, nb: int) -> tup
     degree 0, which lets select() take its one-PBS-per-block path. The
     same numpy expression as the JAX package, so the degrees agree."""
     bpb = _bits_per_block(params)
-    vals_np = _u64.u64_to_numpy(values).reshape(-1)
+    with span("wait.degrees"):
+        vals_np = _u64.u64_to_numpy(values).reshape(-1)
     mask = np.uint64(params.message_modulus - 1)
     try:
         return tuple(int(((vals_np >> np.uint64(bpb * i)) & mask).max()) for i in range(nb))
@@ -185,11 +186,7 @@ def trivial_radix(params: ShortintParams, values, nbits: int, device=None) -> Ra
 
 def _pbs_flat(sk: ServerKey, ct: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     """(B, kN+1) x (B, k+1, N) -> (B, kN+1), dispatched on the key type."""
-    engine = si.engine_for(sk.params, sk.device)
-    small = keyswitch(ct, sk.ksk)
-    if isinstance(sk.bsk, MultiBitBootstrapKey):
-        return multibit_programmable_bootstrap(small, lut, sk.bsk, engine)
-    return programmable_bootstrap(small, lut, sk.bsk, engine)
+    return si._keyswitch_pbs(sk, ct, lut)
 
 
 def _pbs(sk: ServerKey, ct: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -211,10 +208,12 @@ def _pbs(sk: ServerKey, ct: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 _pbs.rows = 0
 
 
+@span("integer.lut")
 def _lut(sk: ServerKey, table) -> torch.Tensor:
     return si.generate_lut(sk.params, np.asarray(table, dtype=np.uint64), sk.device)
 
 
+@span("integer.lut")
 def _lut_table(params: ShortintParams, f: Callable) -> np.ndarray:
     space = params.message_modulus * params.carry_modulus
     return np.array([int(f(v)) % space for v in range(space)], dtype=np.uint64)
@@ -234,6 +233,7 @@ def _stacked_pbs(sk: ServerKey, cts: Sequence[torch.Tensor], tables) -> list:
 # -- carry propagation -------------------------------------------------------------
 
 
+@span("integer.propagate_carries")
 def propagate_carries(sk: ServerKey, c: RadixCiphertext) -> RadixCiphertext:
     """Flush carries block by block (sequential in nblocks, batched over
     the leading dims). Result blocks are fresh (degree < msg_mod)."""
@@ -289,6 +289,7 @@ def _add_to_body(blocks: torch.Tensor, value: int, params: ShortintParams, block
 # -- linear ops ---------------------------------------------------------------------
 
 
+@span("integer.add")
 def add(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
     if a.nblocks != b.nblocks:
         raise ValueError("operands of different widths")
@@ -311,6 +312,7 @@ def bitnot_blocks(sk: ServerKey, a: RadixCiphertext) -> RadixCiphertext:
     return RadixCiphertext(blocks=new, params=p, degrees=(p.message_modulus - 1,) * a.nblocks)
 
 
+@span("integer.sub")
 def sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
     """a - b = a + ~b + 1 (two's complement in base msg_mod)."""
     p = sk.params
@@ -322,6 +324,7 @@ def sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertex
     return propagate_carries(sk, RadixCiphertext(blocks=s, params=p, degrees=tuple(degs)))
 
 
+@span("integer.add_sub")
 def add_sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> tuple[RadixCiphertext, RadixCiphertext]:
     """(a + b, a - b) sharing ONE stacked carry chain (the ERC20
     transfer's balance +/- moved): stacking the two pre-carry block
@@ -380,14 +383,17 @@ def _bivariate_blocks(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext, f: 
     return RadixCiphertext(blocks=out, params=p, degrees=(int(table.max()),) * a.nblocks)
 
 
+@span("integer.bitand")
 def bitand(sk: ServerKey, a, b) -> RadixCiphertext:
     return _bivariate_blocks(sk, a, b, lambda x, y: x & y)
 
 
+@span("integer.bitor")
 def bitor(sk: ServerKey, a, b) -> RadixCiphertext:
     return _bivariate_blocks(sk, a, b, lambda x, y: x | y)
 
 
+@span("integer.bitxor")
 def bitxor(sk: ServerKey, a, b) -> RadixCiphertext:
     return _bivariate_blocks(sk, a, b, lambda x, y: x ^ y)
 
@@ -399,6 +405,7 @@ def bitnot(sk: ServerKey, a: RadixCiphertext) -> RadixCiphertext:
 # -- multiplication ---------------------------------------------------------------------
 
 
+@span("integer.mul")
 def mul(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
     """Schoolbook block multiply mod 2^nbits: every partial product (lo
     and hi halves of every block pair) in ONE stacked bivariate PBS, then
@@ -530,6 +537,7 @@ def _bool_block(sk: ServerKey, ct: torch.Tensor) -> si.Ciphertext:
     return si.Ciphertext(ct=ct, params=sk.params, degree=1, noise_level=1)
 
 
+@span("integer.eq")
 def eq(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> si.Ciphertext:
     """An encrypted boolean block (value in {0,1})."""
     ne_blocks = _bivariate_blocks(sk, a, b, lambda x, y: 1 if x != y else 0)
@@ -538,6 +546,7 @@ def eq(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> si.Ciphertext:
     return _bool_block(sk, _pbs(sk, any_ne, _lut(sk, _lut_table(sk.params, lambda v: 0 if v else 1))))
 
 
+@span("integer.ne")
 def ne(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> si.Ciphertext:
     e = eq(sk, a, b)
     return _bool_block(sk, _pbs(sk, e.ct, _lut(sk, _lut_table(sk.params, lambda v: 0 if v else 1))))
@@ -556,18 +565,22 @@ def _sign_to_bool(sk: ServerKey, sign: torch.Tensor, pred: Callable) -> si.Ciphe
     return _bool_block(sk, _pbs(sk, sign, _lut(sk, table)))
 
 
+@span("integer.lt")
 def lt(sk, a, b):
     return _sign_to_bool(sk, _compare_sign(sk, a, b), lambda s: s == 0)
 
 
+@span("integer.le")
 def le(sk, a, b):
     return _sign_to_bool(sk, _compare_sign(sk, a, b), lambda s: s != 2)
 
 
+@span("integer.gt")
 def gt(sk, a, b):
     return _sign_to_bool(sk, _compare_sign(sk, a, b), lambda s: s == 2)
 
 
+@span("integer.ge")
 def ge(sk, a, b):
     return _sign_to_bool(sk, _compare_sign(sk, a, b), lambda s: s != 0)
 
@@ -575,6 +588,7 @@ def ge(sk, a, b):
 # -- select / min / max -------------------------------------------------------------------
 
 
+@span("integer.select")
 def select(sk: ServerKey, cond: si.Ciphertext, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
     """cond ? a : b, cond a 0/1 block. Two stacked bivariate PBS per block
     batch + add; one when either side is a trivial zero (degrees all 0)."""
@@ -642,18 +656,22 @@ def _shift_blocks(sk: ServerKey, a: RadixCiphertext, r: int, rotate: bool, left:
     return RadixCiphertext(blocks=out, params=p, degrees=(m - 1,) * nb)
 
 
+@span("integer.shl")
 def shl(sk, a, r: int):
     return _shift_blocks(sk, a, r, rotate=False, left=True)
 
 
+@span("integer.shr")
 def shr(sk, a, r: int):
     return _shift_blocks(sk, a, r, rotate=False, left=False)
 
 
+@span("integer.rotl")
 def rotl(sk, a, r: int):
     return _shift_blocks(sk, a, r, rotate=True, left=True)
 
 
+@span("integer.rotr")
 def rotr(sk, a, r: int):
     return _shift_blocks(sk, a, r, rotate=True, left=False)
 
@@ -661,6 +679,7 @@ def rotr(sk, a, r: int):
 # -- bit extraction / encrypted-amount shifts / division ---------------------------------------
 
 
+@span("integer.extract_bits")
 def extract_bits(sk: ServerKey, a: RadixCiphertext) -> list:
     """All nbits bits of `a` as fresh 0/1 blocks (LSB first), via one
     stacked PBS over (block, bit-position) pairs."""
@@ -691,22 +710,27 @@ def _encrypted_shift(sk: ServerKey, a: RadixCiphertext, amt: RadixCiphertext, ki
     return cur
 
 
+@span("integer.shl_enc")
 def shl_enc(sk, a, amt):
     return _encrypted_shift(sk, a, amt, "shl")
 
 
+@span("integer.shr_enc")
 def shr_enc(sk, a, amt):
     return _encrypted_shift(sk, a, amt, "shr")
 
 
+@span("integer.rotl_enc")
 def rotl_enc(sk, a, amt):
     return _encrypted_shift(sk, a, amt, "rotl")
 
 
+@span("integer.rotr_enc")
 def rotr_enc(sk, a, amt):
     return _encrypted_shift(sk, a, amt, "rotr")
 
 
+@span("integer.div_rem")
 def div_rem(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext):
     """Restoring division: (quotient, remainder), unsigned. Bit-serial:
     nbits rounds of R <- 2R + bit, compare, conditional subtract. Division
@@ -764,6 +788,7 @@ def scalar_rem(sk, a, s: int):
 # -- casts ------------------------------------------------------------------------------------
 
 
+@span("integer.cast")
 def cast(sk: ServerKey, a: RadixCiphertext, nbits: int) -> RadixCiphertext:
     """Zero-extend or truncate (fhevm asEuintX semantics for unsigned)."""
     p = sk.params

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from tfhe_tpu_torch import _device
-from tfhe_tpu_torch.core.bootstrap import BootstrapKey, gen_bootstrap_key, keyswitch_pbs
+from tfhe_tpu_torch.core.bootstrap import BootstrapKey, blind_rotate, gen_bootstrap_key
 from tfhe_tpu_torch.core.glwe import trivial_glwe
 from tfhe_tpu_torch.core.keys import (
     GlweSecretKey,
@@ -31,17 +31,20 @@ from tfhe_tpu_torch.core.lwe import (
     decrypt_lwe,
     encrypt_lwe,
     gen_keyswitch_key,
+    keyswitch,
+    sample_extract,
     trivial_lwe,
 )
 from tfhe_tpu_torch.core.multibit import (
     MultiBitBootstrapKey,
     gen_multibit_bootstrap_key,
-    multibit_keyswitch_pbs,
+    multibit_blind_rotate,
 )
 from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.params import ShortintParams
 from tfhe_tpu_torch.rng import FheRng
 from tfhe_tpu_torch.torus import decode, encode
+from tfhe_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -173,8 +176,14 @@ def generate_lut(params: ShortintParams, f: Union[Callable, np.ndarray], device=
     vals = np.repeat(table * np.uint64(params.delta), box)
     neg_head = (-(vals[: box // 2].astype(np.int64))).astype(np.uint64)
     rot = np.concatenate([vals[box // 2 :], neg_head])
-    pt = torch.from_numpy(rot.view(np.int64).copy()).to(_device.resolve(device))
+    # a blocking copy from pageable memory: on the card it waits for the stream
+    with span("wait.lut_upload"):
+        pt = torch.from_numpy(rot.view(np.int64).copy()).to(_device.resolve(device))
+    generate_lut.uploads += 1
     return trivial_glwe(pt, params.glwe_dimension)
+
+
+generate_lut.uploads = 0  # host-to-device LUT copies
 
 
 def generate_lut_bivariate(params: ShortintParams, f: Callable, device=None) -> torch.Tensor:
@@ -192,13 +201,20 @@ def apply_lut(sk: ServerKey, c: Ciphertext, lut: torch.Tensor, out_degree: int) 
     """The PBS atom: keyswitch down + programmable bootstrap with `lut`.
     Dispatches on the key type: multi-bit keys run the n/g-step
     aggregated rotation."""
-    p = sk.params
-    engine = engine_for(p, sk.device)
-    if isinstance(sk.bsk, MultiBitBootstrapKey):
-        out = multibit_keyswitch_pbs(c.ct, lut, sk.bsk, sk.ksk, engine)
-    else:
-        out = keyswitch_pbs(c.ct, lut, sk.bsk, sk.ksk, engine)
-    return Ciphertext(ct=out, params=p, degree=out_degree, noise_level=1)
+    return Ciphertext(ct=_keyswitch_pbs(sk, c.ct, lut), params=sk.params, degree=out_degree, noise_level=1)
+
+
+def _keyswitch_pbs(sk: ServerKey, ct: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Keyswitch down, blind rotation (K3 or K4 by the key type), sample
+    extraction: (..., kN+1) -> (..., kN+1), one span each."""
+    engine = engine_for(sk.params, sk.device)
+    with span("pbs.keyswitch"):
+        small = keyswitch(ct, sk.ksk)
+    with span("pbs.rotate"):
+        rotate = multibit_blind_rotate if isinstance(sk.bsk, MultiBitBootstrapKey) else blind_rotate
+        acc = rotate(lut, small, sk.bsk, engine)
+    with span("pbs.extract"):
+        return sample_extract(acc, 0)
 
 
 def _check_degree(c: Ciphertext):

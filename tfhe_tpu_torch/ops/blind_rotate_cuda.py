@@ -131,10 +131,12 @@ def cmux_steps(acc, exps, bsk_ntt, rot_table, engine, base_log: int, shift: int)
         "tfhe_cmux_steps",
     )
     cmux_steps.launches += 1
+    cmux_steps.rows += b
     return out
 
 
 cmux_steps.launches = 0
+cmux_steps.rows = 0  # ciphertexts over all launches
 
 
 def level1_digits_forward_plain(acc, engine, base_log: int) -> torch.Tensor:

@@ -131,10 +131,12 @@ def group_steps(acc, a, bsk_ntt, table, engine, base_log: int, shift: int, group
         "tfhe_multibit_group_steps",
     )
     group_steps.launches += 1
+    group_steps.rows += b
     return out
 
 
 group_steps.launches = 0
+group_steps.rows = 0  # ciphertexts over all launches
 
 
 def _horner(inners: dict, mv, ms, p: int, bits: tuple):
