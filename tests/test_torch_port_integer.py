@@ -8,6 +8,9 @@
   PBS in both packages.
 * With the port's own keys: encrypted shifts, div_rem, min/max, the scalar
   variants, the bigint forms and one classic-key add match clear math.
+* add_sub_many (one carry chain for the adds and subs of one width) and
+  add_sub give the bits and degrees of separate add and sub calls, on
+  TOY_SHORTINT, sharing a chain only where the ops' carry steps agree.
 * PbsDispatcher groups, pads and scatters, and with the port's PBS as
   run_batch its results decrypt right.
 """
@@ -267,6 +270,70 @@ def test_classic_key_add_matches_clear():
     assert not isinstance(sk.bsk, MultiBitBootstrapKey)
     out = ti.add(sk, _enc(ck, [250, 17], 8, 11), _enc(ck, [9, 100], 8, 12))
     assert _dec(ck, out) == [3, 117]
+
+
+# -- add_sub_many: the adds and subs of one width in one carry chain -------------------
+
+# the 4-bit (two-block) operands at TOY_SHORTINT: name -> clear values, and
+# a trivial radix for s9 and s4 as the instance lifts a scalar
+CHAIN_VALUES = {"a": 11, "b": 6, "A": [3, 15, 8], "B": [9, 15, 0], "s9": 9, "s4": 4}
+
+# case -> (ops, shared chains, radix ciphertexts in them, _stacked_pbs calls).
+# Fresh operands give add's pre-carry degrees (6, 6) and sub's (7, 6): both
+# flush each block and carry 1 from block 0, so they share a chain; s9's
+# degrees (1, 2) leave add's steps the same; s4's (0, 1) leave add's block 0
+# unflushed, so that add runs in a chain of its own.
+CHAIN_CASES = {
+    "add_only": ([("add", "a", "b"), ("add", "A", "B")], 1, 4, 2),
+    "sub_only": ([("sub", "A", "B"), ("sub", "a", "b")], 1, 4, 2),
+    "mixed": ([("add", "a", "b"), ("sub", "A", "B"), ("sub", "a", "b"), ("add", "A", "B")], 1, 8, 2),
+    "scalar_rhs": ([("add", "a", "s9"), ("sub", "A", "s9")], 1, 4, 2),
+    "single": ([("sub", "A", "B")], 0, 0, 2),
+    "steps_differ": ([("add", "a", "s4"), ("sub", "a", "b")], 0, 0, 3),
+    "add_sub": ([("add", "A", "B"), ("sub", "A", "B")], 1, 6, 2),  # through ti.add_sub
+}
+
+
+@pytest.fixture(scope="module")
+def toy():
+    """TOY_SHORTINT keys, the 4-bit operands, and a cache of the separate
+    add/sub results the cases share."""
+    ck, sk = tsi.keygen(tp.TOY_SHORTINT, seed=13, device="cpu")
+    cts = {name: _enc(ck, v, 4, 21 + i) for i, (name, v) in enumerate(CHAIN_VALUES.items()) if name[0] != "s"}
+    for name in ("s9", "s4"):
+        cts[name] = ti.trivial_radix(sk.params, np.uint64(CHAIN_VALUES[name]), 4, device="cpu")
+    return ck, sk, cts, {}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_add_sub_many_equals_separate_ops(toy, monkeypatch, case):
+    """add_sub_many (and add_sub) give each op the ciphertext bits and
+    degrees of a separate integer.add / integer.sub, in one chain where
+    the ops' carry steps agree and in chains of their own where not."""
+    ck, sk, cts, separate = toy
+    ops, chains, rows, calls = CHAIN_CASES[case]
+    args = [(kind, cts[x], cts[y]) for kind, x, y in ops]
+    n_calls = [0]
+    stacked = ti._stacked_pbs
+
+    def counted(*a):
+        n_calls[0] += 1
+        return stacked(*a)
+
+    monkeypatch.setattr(ti, "_stacked_pbs", counted)
+    before = (ti.add_sub_many.chains, ti.add_sub_many.ops)
+    got = ti.add_sub(sk, cts["A"], cts["B"]) if case == "add_sub" else ti.add_sub_many(sk, args)
+    assert n_calls[0] == calls
+    assert (ti.add_sub_many.chains - before[0], ti.add_sub_many.ops - before[1]) == (chains, rows)
+    monkeypatch.undo()
+    for (kind, x, y), (_, ca, cb), g in zip(ops, args, got):
+        if (kind, x, y) not in separate:
+            separate[kind, x, y] = getattr(ti, kind)(sk, ca, cb)
+        want = separate[kind, x, y]
+        assert g.degrees == want.degrees
+        assert torch.equal(g.blocks, want.blocks)
+        clear = np.asarray(CHAIN_VALUES[x]) + (1 if kind == "add" else -1) * np.asarray(CHAIN_VALUES[y])
+        assert _dec(ck, g) == (clear % 16).tolist()
 
 
 def test_dispatcher_pads_and_routes(own):

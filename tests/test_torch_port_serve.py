@@ -12,6 +12,10 @@ with `convert.keys_from_reference`, and on the same input ciphertexts
   /publickey, a full /input-proof submission (a JAX-serialized list and a
   proof that the JAX verifier accepts), a batched /evaluate, a verified
   /public-decrypt, the full /user-decrypt protocol and the API-key check;
+* an ERC20 /evaluate list at 1 and 3 transfers gives the reply and the
+  stored ciphertexts of the unfused waves (a second port instance from
+  the same seed, bucket by bucket) bit for bit, with the wave's sub and
+  add in one carry chain;
 * the port's spans (`utils/profiling`): off with no profiler session (no
   range entered, SPANS unchanged), their nesting and self-time arithmetic
   under one, one /evaluate's spans on the handler thread sharing a request
@@ -45,6 +49,7 @@ from tfhe_tpu_torch.api import compact_pke as tcp
 from tfhe_tpu_torch.api import types as tty
 from tfhe_tpu_torch.api import zkpok as tzk
 from tfhe_tpu_torch.api.client import FheClient as PortClient
+from tfhe_tpu_torch.api.handles import FhevmHandle
 from tfhe_tpu_torch.api.instance import create_instance
 from tfhe_tpu_torch.api.serve import FheServer
 from tfhe_tpu_torch.models import integer as tri
@@ -78,6 +83,17 @@ def _to_port(t, ct):
     )
 
 
+def _port_instance(jinst):
+    """A port instance at TOY_SHORTINT, seed 19, on the JAX instance's keys."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(
+            keycache,
+            "load_or_keygen",
+            lambda params, seed=0, device=None, **kw: (*convert.keys_from_reference(jinst._ck, jinst._sk, device=device), {}),
+        )
+        return create_instance(tp.TOY_SHORTINT, seed=19, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def pair():
     """(JAX instance, port instance on its keys, input handles a, b: euint8,
@@ -85,13 +101,7 @@ def pair():
     registered in both stores, as a verified input is, under input handles
     derived from their serialized blobs."""
     jinst = jax_create_instance(jp.TOY_SHORTINT, seed=19)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(
-            keycache,
-            "load_or_keygen",
-            lambda params, seed=0, device=None, **kw: (*convert.keys_from_reference(jinst._ck, jinst._sk, device=device), {}),
-        )
-        tinst = create_instance(tp.TOY_SHORTINT, seed=19, device="cpu")
+    tinst = _port_instance(jinst)
     ints = jri.encrypt_radix(jinst._ck, jnp.asarray([A, B], dtype=jnp.uint64), 8, JaxRng(5))
     bools = jsi.encrypt(jinst._ck, jnp.asarray([1, 0], dtype=jnp.uint64), JaxRng(6))
     cts = [("euint8", jri.RadixCiphertext(blocks=ints.blocks[i], params=jp.TOY_SHORTINT, degrees=ints.degrees))
@@ -241,6 +251,115 @@ def test_input_evaluate_and_decrypt_round_trip(client, pair):
         client.allow(h, account=C, for_decryption=False)
     got = client.user_decrypt([(h, C) for h in r["handles"][1::3]], priv)
     assert got == want[1::3]
+
+
+@pytest.fixture(scope="module")
+def erc20(pair):
+    """euint8 balances and amounts, and the zero as the benchmark makes it
+    (xor of an amount with itself), in the store of the served instance and
+    of a second port instance from the same seed, which runs the unfused
+    waves."""
+    jinst, tinst, _ = pair
+    unfused = _port_instance(jinst)
+    bal = tri.encrypt_radix(tinst._ck, np.array(ERC20_BAL, dtype=np.uint64), 8, FheRng(31, device="cpu"))
+    amt = tri.encrypt_radix(tinst._ck, np.array(ERC20_AMT, dtype=np.uint64), 8, FheRng(32, device="cpu"))
+    handles = []
+    for i, blocks in enumerate([*bal.blocks, *amt.blocks]):
+        h = bytes([0xE0 + i]) * 32
+        entry = (tty.FHE_TYPES["euint8"], tri.RadixCiphertext(blocks=blocks, params=tp.TOY_SHORTINT, degrees=bal.degrees))
+        tinst._store[h] = unfused._store[h] = entry
+        handles.append(h)
+    zero = tinst.fhe_op("xor", handles[8], handles[8])
+    unfused._store[zero] = tinst._store[zero]
+    return unfused, handles[:8], handles[8:], zero
+
+
+# balances and amounts: the one-transfer list pays from account 0 to 4 with
+# amount 0, the three-transfer list from 1..3 to 5..7 with amounts 1..3, so
+# the two lists share no operand and no result (two overdraws, one wrap)
+ERC20_BAL = [200, 17, 90, 9, 130, 61, 44, 250]
+ERC20_AMT = [50, 30, 60, 7]
+
+
+def _erc20_transfers(n):
+    """(payer, payee, amount) indices of the list of n transfers."""
+    first = 0 if n == 1 else 1
+    return [(first + k, first + 4 + k, first + k) for k in range(n)]
+
+
+def _erc20_ops(inst, bal, amt, zero, transfers):
+    """benchmark/generators/erc20_closed_loop.py's list: per transfer le,
+    select against the zero, sub from the payer, add to the payee."""
+    ops = []
+    for i, j, k in _erc20_transfers(transfers):
+        f, t, a = bal[i], bal[j], amt[k]
+        cond = FhevmHandle.from_op("le", [a, f], inst.chain_id, tty.FHE_TYPES["ebool"].type_id).to_bytes32()
+        moved = FhevmHandle.from_op("select", [cond, a, zero], inst.chain_id, tty.FHE_TYPES["euint8"].type_id).to_bytes32()
+        ops += [("le", [a, f]), ("select", [cond, a, zero]), ("sub", [f, moved]), ("add", [t, moved])]
+    return ops
+
+
+def _unfused_evaluate(inst, op_cost, ops):
+    """/evaluate's waves with no shared carry chain: each wave's batch_key
+    buckets one after another, through fhe_op_many, a lone op through
+    fhe_op; the reply counted per bucket."""
+    out, cost, groups, singles = [None] * len(ops), 0, 0, 0
+    while None in out:
+        buckets = {}
+        for i, (op, args) in enumerate(ops):
+            if out[i] is None and all(not isinstance(x, bytes) or x in inst._store for x in args):
+                buckets.setdefault(inst.batch_key(op, args), []).append(i)
+        for key, idxs in buckets.items():
+            if key is not None and len(idxs) > 1:
+                hs = inst.fhe_op_many(key[0], [tuple(ops[i][1]) for i in idxs])
+                groups += 1
+            else:
+                hs = [inst.fhe_op(ops[i][0], *ops[i][1]) for i in idxs]
+                singles += len(idxs)
+            for i, h in zip(idxs, hs):
+                out[i] = h
+                cost += op_cost(*ops[i])
+    return {"handles": ["0x" + h.hex() for h in out], "gasUsed": cost, "batchedGroups": groups, "singleOps": singles}
+
+
+@pytest.mark.parametrize("transfers", [1, 3])
+def test_evaluate_runs_a_waves_add_and_sub_in_one_chain(client, server, pair, erc20, monkeypatch, transfers):
+    """An ERC20 /evaluate list gives the reply and the stored ciphertexts of
+    the unfused waves bit for bit, with one carry chain fewer: the wave's
+    sub and add share one."""
+    tinst = pair[1]
+    unfused, bal, amt, zero = erc20
+    ops = _erc20_ops(tinst, bal, amt, zero, transfers)
+    calls = [0]
+    stacked = tri._stacked_pbs
+
+    def counted(*a):
+        calls[0] += 1
+        return stacked(*a)
+
+    monkeypatch.setattr(tri, "_stacked_pbs", counted)
+    before = (tri.add_sub_many.chains, tri.add_sub_many.ops)
+    got = client.evaluate_many([(op, ["0x" + x.hex() for x in args]) for op, args in ops])
+    fused_calls, calls[0] = calls[0], 0
+    assert (tri.add_sub_many.chains - before[0], tri.add_sub_many.ops - before[1]) == (1, 2 * transfers)
+    # the gas of an op reads its operands' types from the served store
+    want = _unfused_evaluate(unfused, server._op_cost, ops)
+    assert fused_calls == calls[0] - 4  # one euint8 carry chain: 4 blocks
+    assert {k: got[k] for k in want} == want
+    for h in want["handles"]:
+        (tt, tct), (ut, uct) = tinst._store[bytes.fromhex(h[2:])], unfused._store[bytes.fromhex(h[2:])]
+        assert tt.name == ut.name
+        if isinstance(uct, tri.RadixCiphertext):
+            assert tct.degrees == uct.degrees
+            assert torch.equal(tct.blocks, uct.blocks)
+        else:
+            assert (tct.degree, tct.noise_level) == (uct.degree, uct.noise_level)
+            assert torch.equal(tct.ct, uct.ct)
+    for n, (i, j, k) in enumerate(_erc20_transfers(transfers)):
+        moved = ERC20_AMT[k] if ERC20_AMT[k] <= ERC20_BAL[i] else 0
+        h_from, h_to = (bytes.fromhex(h[2:]) for h in want["handles"][4 * n + 2:4 * n + 4])
+        assert tinst._decrypt_handle(h_from) == ERC20_BAL[i] - moved
+        assert tinst._decrypt_handle(h_to) == (ERC20_BAL[j] + moved) % 256
 
 
 def test_api_key_is_checked(pair):

@@ -652,32 +652,7 @@ class FhevmInstance:
         if op == "select":
             return self._select_many(pairs)
         with span("instance.gather"):
-            ts, acts, bcts = [], [], []
-            for ha, hb in pairs:
-                t, a = self._get_radix(ha)
-                if isinstance(hb, bytes):
-                    _, b = self._get_radix(hb)
-                else:
-                    b = self._lift_scalar(int(hb), a.nbits)
-                ts.append(t)
-                acts.append(a)
-                bcts.append(b)
-            batch_a = ri.RadixCiphertext(
-                blocks=torch.stack([a.blocks for a in acts]),
-                params=self.params,
-                degrees=tuple(
-                    max(a.degrees[i] for a in acts)
-                    for i in range(acts[0].nblocks)
-                ),
-            )
-            batch_b = ri.RadixCiphertext(
-                blocks=torch.stack([b.blocks for b in bcts]),
-                params=self.params,
-                degrees=tuple(
-                    max(b.degrees[i] for b in bcts)
-                    for i in range(bcts[0].nblocks)
-                ),
-            )
+            ts, batch_a, batch_b = self._gather_pairs(pairs)
         with span("instance.op"):
             if op in self.BINARY_OPS:
                 res = self.BINARY_OPS[op](self._sk, batch_a, batch_b)
@@ -700,26 +675,52 @@ class FhevmInstance:
                 handles.append(self._put(t, one, op, list(pairs[i][:2])))
         return handles
 
+    def add_sub_many(self, ops: list) -> list:
+        """Every add and sub of one radix type and width in ONE stacked
+        carry chain (ri.add_sub_many), where their degrees give the same
+        carry steps.
+
+        ops: [(op, (handle_a, handle_b_or_scalar)), ...] with op "add" or
+        "sub" -> result handles. The pairs of each op are gathered and
+        stacked as fhe_op_many stacks them, so every handle and stored
+        ciphertext equals the one fhe_op_many gives that op's pairs (and
+        fhe_op a lone pair). Ops that do not all share one (type, width)
+        batch_key run per op.
+        """
+        with span("instance.gather"):
+            keys = [self.batch_key(op, list(args)) for op, args in ops]
+            if None in keys or len({k[1:] for k in keys}) != 1 or {k[0] for k in keys} - {"add", "sub"}:
+                batched = None
+            else:
+                by_op: dict[str, list[int]] = {}
+                for i, (op, _) in enumerate(ops):
+                    by_op.setdefault(op, []).append(i)
+                batched = [
+                    (op, idxs, *self._gather_pairs([tuple(ops[i][1]) for i in idxs]))
+                    for op, idxs in by_op.items()
+                ]
+        if batched is None:
+            return [self.fhe_op(op, *args) for op, args in ops]
+        with span("instance.op"):
+            res = ri.add_sub_many(self._sk, [(op, a, b) for op, _, _, a, b in batched])
+        with span("instance.put"):
+            handles = [None] * len(ops)
+            for (op, idxs, ts, _, _), r in zip(batched, res):
+                for j, (i, t) in enumerate(zip(idxs, ts)):
+                    one = ri.RadixCiphertext(blocks=r.blocks[j], params=self.params, degrees=r.degrees)
+                    handles[i] = self._put(t, one, op, list(ops[i][1][:2]))
+        return handles
+
     def _select_many(self, triples: list) -> list:
         """Batched FHE.select over [(cond, a, b), ...] triples that share
         one batch_key: ONE stacked-PBS device program for the whole group
         (ri.select broadcasts the cond block over the radix blocks, so a
         leading batch axis rides through unchanged)."""
-        def stack(cts):
-            return ri.RadixCiphertext(
-                blocks=torch.stack([x.blocks for x in cts]),
-                params=self.params,
-                degrees=tuple(
-                    max(x.degrees[i] for x in cts)
-                    for i in range(cts[0].nblocks)
-                ),
-            )
-
         with span("instance.gather"):
             conds = [self._get_bool(c) for c, _, _ in triples]
             ts = [self._store[a][0] for _, a, _ in triples]
-            batch_a = stack([self._get_radix(a)[1] for _, a, _ in triples])
-            batch_b = stack([self._get_radix(b)[1] for _, _, b in triples])
+            batch_a = self._stack([self._get_radix(a)[1] for _, a, _ in triples])
+            batch_b = self._stack([self._get_radix(b)[1] for _, _, b in triples])
             batch_c = si.Ciphertext(
                 ct=torch.stack([c.ct for c in conds]),
                 params=self.params,
@@ -742,6 +743,31 @@ class FhevmInstance:
             ]
 
     # -- internals --------------------------------------------------------------
+
+    def _stack(self, cts: list):
+        """Radix ciphertexts of one width stacked along a leading axis,
+        each block's degree the largest among them."""
+        return ri.RadixCiphertext(
+            blocks=torch.stack([x.blocks for x in cts]),
+            params=self.params,
+            degrees=tuple(max(x.degrees[i] for x in cts) for i in range(cts[0].nblocks)),
+        )
+
+    def _gather_pairs(self, pairs: list):
+        """[(handle_a, handle_b_or_scalar), ...] -> (the types of the a
+        operands, the a operands stacked, the b operands stacked); a
+        scalar b is lifted to a trivial radix of a's width."""
+        ts, acts, bcts = [], [], []
+        for ha, hb in pairs:
+            t, a = self._get_radix(ha)
+            if isinstance(hb, bytes):
+                _, b = self._get_radix(hb)
+            else:
+                b = self._lift_scalar(int(hb), a.nbits)
+            ts.append(t)
+            acts.append(a)
+            bcts.append(b)
+        return ts, self._stack(acts), self._stack(bcts)
 
     def _pk_encrypt_value(self, t: FheType, v: int):
         p = self.params

@@ -152,7 +152,9 @@ class FheServer:
         Ops may reference result handles of EARLIER ops in the same list
         (deterministic handle derivation makes them client-predictable):
         execution proceeds in dependency waves -- each wave runs every
-        op whose operands already exist, batched per bucket."""
+        op whose operands already exist, batched per bucket. A wave's add
+        and sub buckets of one (type, width) share ONE stacked carry chain
+        (instance.add_sub_many); the reply still counts them per bucket."""
         inst = self.instance
         with span("api.read"):
             reqs = [(o["op"], self._parse_args(o["args"])) for o in ops_body]
@@ -182,18 +184,31 @@ class FheServer:
                         singles.append(i)
                     else:
                         buckets.setdefault(key, []).append(i)
-            for key, idxs in buckets.items():
-                if len(idxs) == 1:
+                # a wave's add and sub buckets of one (type, width) run
+                # together, as one carry chain
+                runs: dict[tuple, list[tuple]] = {}
+                for key in buckets:
+                    run = ("add/sub", *key[1:]) if key[0] in ("add", "sub") else key
+                    runs.setdefault(run, []).append(key)
+            for run, keys in runs.items():
+                idxs = [k for key in keys for k in buckets[key]]
+                if run[0] == "add/sub":
+                    hs = inst.add_sub_many([(reqs[k][0], tuple(reqs[k][1])) for k in idxs])
+                elif len(idxs) == 1:
                     singles.extend(idxs)
                     continue
-                op = reqs[idxs[0]][0]
-                hs = inst.fhe_op_many(op, [tuple(reqs[k][1]) for k in idxs])
+                else:
+                    hs = inst.fhe_op_many(run[0], [tuple(reqs[k][1]) for k in idxs])
+                for key in keys:
+                    if len(buckets[key]) == 1:
+                        single_ops += 1
+                    else:
+                        batched_groups += 1
                 with span("api.cost"):
                     for k, h in zip(idxs, hs):
                         out[k] = h
                         done[k] = True
-                        cost += self._op_cost(op, reqs[k][1])
-                batched_groups += 1
+                        cost += self._op_cost(reqs[k][0], reqs[k][1])
             for i in singles:
                 op, args = reqs[i]
                 out[i] = inst.fhe_op(op, *args)

@@ -233,41 +233,57 @@ def _stacked_pbs(sk: ServerKey, cts: Sequence[torch.Tensor], tables) -> list:
 # -- carry propagation -------------------------------------------------------------
 
 
+def _carry_plan(params: ShortintParams, degrees: tuple) -> tuple[tuple, tuple]:
+    """What propagate_carries does to a radix of these block degrees:
+    per block, None where it is left as it is, else the degree of the
+    carry it passes on (0 from the last block); and the output degrees.
+    Two radixes with equal steps run the same PBS rounds."""
+    m = params.message_modulus
+    space = m * params.carry_modulus
+    steps = []
+    out_degrees = []
+    carry_deg = 0
+    for i, d in enumerate(degrees):
+        deg = d + carry_deg
+        if deg >= space:
+            raise ValueError(f"block {i} degree {deg} overflows before flush")
+        if deg < m:
+            # nothing to flush and no carry can emerge
+            carry_deg = 0
+            steps.append(None)
+            out_degrees.append(deg)
+            continue
+        carry_deg = 0 if i == len(degrees) - 1 else deg // m
+        steps.append(carry_deg)
+        out_degrees.append(m - 1)
+    return tuple(steps), tuple(out_degrees)
+
+
 @span("integer.propagate_carries")
 def propagate_carries(sk: ServerKey, c: RadixCiphertext) -> RadixCiphertext:
     """Flush carries block by block (sequential in nblocks, batched over
     the leading dims). Result blocks are fresh (degree < msg_mod)."""
     p = sk.params
     m = p.message_modulus
-    space = m * p.carry_modulus
+    steps, out_degrees = _carry_plan(p, c.degrees)
     msg_table = _lut_table(p, lambda v: v % m)
     car_table = _lut_table(p, lambda v: v // m)
     out_blocks = []
-    out_degrees = []
     carry_ct = None
-    carry_deg = 0
-    for i in range(c.nblocks):
+    for i, step in enumerate(steps):
         blk = c.blocks[..., i, :]
-        deg = c.degrees[i] + carry_deg
         if carry_ct is not None:
             blk = blk + carry_ct
-        if deg >= space:
-            raise ValueError(f"block {i} degree {deg} overflows before flush")
-        if deg < m:
-            # nothing to flush and no carry can emerge
+        if step is None:
             out_blocks.append(blk)
-            out_degrees.append(deg)
-            carry_ct, carry_deg = None, 0
-            continue
-        if i == c.nblocks - 1:
+            carry_ct = None
+        elif i == c.nblocks - 1:
             (msg,) = _stacked_pbs(sk, [blk], [msg_table])
-            carry_ct, carry_deg = None, 0
+            out_blocks.append(msg)
         else:
             msg, carry_ct = _stacked_pbs(sk, [blk, blk], [msg_table, car_table])
-            carry_deg = deg // m
-        out_blocks.append(msg)
-        out_degrees.append(min(deg, m - 1))
-    return RadixCiphertext(blocks=torch.stack(out_blocks, dim=-2), params=p, degrees=tuple(out_degrees))
+            out_blocks.append(msg)
+    return RadixCiphertext(blocks=torch.stack(out_blocks, dim=-2), params=p, degrees=out_degrees)
 
 
 def _fresh(sk: ServerKey, c: RadixCiphertext) -> RadixCiphertext:
@@ -289,8 +305,8 @@ def _add_to_body(blocks: torch.Tensor, value: int, params: ShortintParams, block
 # -- linear ops ---------------------------------------------------------------------
 
 
-@span("integer.add")
-def add(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
+def _add_pre_carry(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
+    """add's blocks before its carry chain."""
     if a.nblocks != b.nblocks:
         raise ValueError("operands of different widths")
     p = sk.params
@@ -298,10 +314,9 @@ def add(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertex
     if any(da + db >= space for da, db in zip(a.degrees, b.degrees)):
         a = _fresh(sk, a)
         b = _fresh(sk, b)
-    out = RadixCiphertext(
+    return RadixCiphertext(
         blocks=a.blocks + b.blocks, params=p, degrees=tuple(da + db for da, db in zip(a.degrees, b.degrees))
     )
-    return propagate_carries(sk, out)
 
 
 def bitnot_blocks(sk: ServerKey, a: RadixCiphertext) -> RadixCiphertext:
@@ -312,42 +327,83 @@ def bitnot_blocks(sk: ServerKey, a: RadixCiphertext) -> RadixCiphertext:
     return RadixCiphertext(blocks=new, params=p, degrees=(p.message_modulus - 1,) * a.nblocks)
 
 
-@span("integer.sub")
-def sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
-    """a - b = a + ~b + 1 (two's complement in base msg_mod)."""
+def _sub_pre_carry(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
+    """sub's blocks before its carry chain: a + ~b + 1."""
     p = sk.params
     nb = a.nblocks
     notb = bitnot_blocks(sk, b)
     a = _fresh(sk, a)
     s = _add_to_body(a.blocks + notb.blocks, 1, p, block=0)
     degs = [a.degrees[i] + notb.degrees[i] + (1 if i == 0 else 0) for i in range(nb)]
-    return propagate_carries(sk, RadixCiphertext(blocks=s, params=p, degrees=tuple(degs)))
+    return RadixCiphertext(blocks=s, params=p, degrees=tuple(degs))
+
+
+_PRE_CARRY = {"add": _add_pre_carry, "sub": _sub_pre_carry}
+
+
+@span("integer.add")
+def add(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
+    return propagate_carries(sk, _add_pre_carry(sk, a, b))
+
+
+@span("integer.sub")
+def sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> RadixCiphertext:
+    """a - b = a + ~b + 1 (two's complement in base msg_mod)."""
+    return propagate_carries(sk, _sub_pre_carry(sk, a, b))
+
+
+@span("integer.add_sub_many")
+def add_sub_many(sk: ServerKey, ops: Sequence[tuple]) -> list:
+    """[(kind, a, b), ...] with kind "add" or "sub", over radixes of one
+    width and any batch shapes -> one RadixCiphertext per op, equal to
+    add(sk, a, b) or sub(sk, a, b) bit for bit, degrees included.
+
+    The ops whose pre-carry degrees give propagate_carries the same steps
+    (the same blocks flushed, the same carry degrees) run ONE carry chain
+    over their rows stacked along a leading axis: each PBS round is one
+    call for all of them. Each row's PBS depends on that row alone, so
+    the stacking changes no bit. Ops whose steps differ run in chains of
+    their own. `ops` counts the radix ciphertexts that ran in a shared
+    chain, `chains` the shared chains."""
+    pre = [_PRE_CARRY[kind](sk, a, b) for kind, a, b in ops]
+    plans = [_carry_plan(sk.params, c.degrees) for c in pre]
+    groups: dict[tuple, list[int]] = {}
+    for i, (steps, _) in enumerate(plans):
+        groups.setdefault(steps, []).append(i)
+    out = [None] * len(ops)
+    for idx in groups.values():
+        flat = [pre[i].blocks.reshape((-1,) + tuple(pre[i].blocks.shape[-2:])) for i in idx]
+        chain = propagate_carries(
+            sk, RadixCiphertext(blocks=torch.cat(flat), params=sk.params, degrees=pre[idx[0]].degrees)
+        )
+        parts = torch.split(chain.blocks, [f.shape[0] for f in flat])
+        for i, part in zip(idx, parts):
+            out[i] = RadixCiphertext(
+                blocks=part.reshape(pre[i].blocks.shape), params=sk.params, degrees=plans[i][1]
+            )
+        if len(idx) > 1:
+            add_sub_many.chains += 1
+            add_sub_many.ops += sum(f.shape[0] for f in flat)
+    return out
+
+
+add_sub_many.ops = 0
+add_sub_many.chains = 0
 
 
 @span("integer.add_sub")
 def add_sub(sk: ServerKey, a: RadixCiphertext, b: RadixCiphertext) -> tuple[RadixCiphertext, RadixCiphertext]:
-    """(a + b, a - b) sharing ONE stacked carry chain (the ERC20
-    transfer's balance +/- moved): stacking the two pre-carry block
-    tensors doubles the per-round PBS batch and halves the calls."""
+    """(add(a, b), sub(a, b)) of fresh a and b, sharing ONE stacked carry
+    chain where their steps agree (the ERC20 transfer's balance +/- moved):
+    stacking the two pre-carry block tensors doubles the per-round PBS
+    batch and halves the calls. Where they differ (low block degrees in
+    b), each runs its own chain; the JAX package's add_sub then runs one
+    chain on the larger of the two degrees of each block."""
     if a.nblocks != b.nblocks:
         raise ValueError("operands of different widths")
-    p = sk.params
-    m = p.message_modulus
     a = _fresh(sk, a)
     b = _fresh(sk, b)
-    notb_blocks = _add_to_body(-b.blocks, m - 1, p)
-    s_add = a.blocks + b.blocks
-    s_sub = _add_to_body(a.blocks + notb_blocks, 1, p, block=0)
-    stacked = torch.stack([s_add, s_sub], dim=0)
-    degs = tuple(
-        max(a.degrees[i] + b.degrees[i], a.degrees[i] + (m - 1) + (1 if i == 0 else 0))
-        for i in range(a.nblocks)
-    )
-    out = propagate_carries(sk, RadixCiphertext(blocks=stacked, params=p, degrees=degs))
-    return (
-        RadixCiphertext(blocks=out.blocks[0], params=p, degrees=out.degrees),
-        RadixCiphertext(blocks=out.blocks[1], params=p, degrees=out.degrees),
-    )
+    return tuple(add_sub_many(sk, [("add", a, b), ("sub", a, b)]))
 
 
 def _scalar_ct(sk: ServerKey, a: RadixCiphertext, s: int) -> RadixCiphertext:
