@@ -3,16 +3,12 @@ self time of the program's `api` and `instance` spans (HTTP, JSON, the
 dependency waves and buckets, gathering operands, handles and gas costs;
 not the radix ops, the PBS or the waits on the card) over the window, per
 request. Spans run only while a profiler session is open, as in a traced
-run. Missing where the program has no spans."""
-
-from tfhe_tpu_torch.utils import profiling
+run; a program without them refuses the run."""
 
 PROFILING = "tfhe_tpu_torch.utils.profiling"
-# a program without spans (an older checkout) leaves this metric out
-COUNTERS = ({"api_self_s": f"{PROFILING}:SPANS.api.self_s",
-             "instance_self_s": f"{PROFILING}:SPANS.instance.self_s",
-             "api_spans": f"{PROFILING}:SPANS.api.count"}
-            if hasattr(profiling, "SPANS") else {})
+COUNTERS = {"api_self_s": f"{PROFILING}:SPANS.api.self_s",
+            "instance_self_s": f"{PROFILING}:SPANS.instance.self_s",
+            "api_spans": f"{PROFILING}:SPANS.api.count"}
 
 
 def read(run):

@@ -6,17 +6,13 @@ the larger of the two bounds over K4's device time in the trace. At one
 batch size it equals `k4_roofline`; over mixed batches the sum of each
 launch's own bound is at least this, so the share reads low, never high.
 Missing where the trace holds another number of K4 launches than the
-wrapper counted, and where the program counts no K4 rows."""
+wrapper counted."""
 
 from benchmark import roofline
-from tfhe_tpu_torch.ops import multibit_cuda
 
 KERNEL = "k4_group_steps"
-# a program that does not count K4's rows (an older checkout) leaves this
-# metric out
-COUNTERS = ({"K4": "tfhe_tpu_torch.ops.multibit_cuda:group_steps.launches",
-             "K4_rows": "tfhe_tpu_torch.ops.multibit_cuda:group_steps.rows"}
-            if hasattr(multibit_cuda.group_steps, "rows") else {})
+COUNTERS = {"K4": "tfhe_tpu_torch.ops.multibit_cuda:group_steps.launches",
+            "K4_rows": "tfhe_tpu_torch.ops.multibit_cuda:group_steps.rows"}
 
 
 def read(run):

@@ -2,12 +2,8 @@
 `k4_group_steps`) as a share of the traced window: the keyswitch, the
 accumulator set-up, sample extraction and the glue around them."""
 
-ROTATION = ("k3_cmux", "k4_group_steps")
+from benchmark.trace import share_outside
 
 
 def read(run):
-    tr = run.trace
-    if tr is None or tr.window_s <= 0:
-        return None
-    rot = sum(s for name, s in tr.kernel_s.items() if name in ROTATION)
-    return 100.0 * (tr.busy_s - rot) / tr.window_s
+    return share_outside(run.trace, ("k3_cmux", "k4_group_steps"))

@@ -1,6 +1,7 @@
-"""Frozen operation and byte counts of the rotation kernels, and the card's
-peaks. A kernel's roofline share is the least time the card could take for
-the work its inputs need, over the time the trace gives the kernel.
+"""Frozen operation and byte counts of the rotation kernels and of the
+GLWE matmul, and the card's peaks. A kernel's roofline share is the least
+time the card could take for the work its inputs need, over the time the
+trace gives the kernel.
 
 Peaks (NVIDIA H100 SXM5 data sheet, dense, at the 700 W power limit):
 - HBM3 bandwidth 3.35e12 bytes/s;
@@ -39,6 +40,45 @@ def bound_s(n_bytes: float, n_ops: float) -> float:
 
 def ntt_ops(rows: int, n_pr: int, n: int) -> float:
     return rows * n_pr * ((n // 2) * int(math.log2(n)) * OPS_BUTTERFLY + n * OPS_MULMOD)
+
+
+def matmul_ops(rows: int, inner: int, out: int, k: int, n_pr: int, n: int, ks_level: int) -> float:
+    """The encrypted x clear matmul, enc(rows x inner) x clear(inner x out),
+    over P primes at polynomial size N: the forward transforms of the input
+    GLWEs; the one-to-many products (a Shoup multiply each) and their sums
+    over the inner chunks; the inverse transforms of the masks and their
+    Garner; the body's coefficient N-1 (a multiply-add a coefficient and
+    prime) and its Garner; the packing keyswitch's digits, their forward
+    transforms, the MAC against the key (a multiply and an add), its
+    inverse transforms and their Garner; the switch to the output modulus
+    (an add and a shift a coefficient)."""
+    chunks, out_chunks, n_in = -(-inner // n), -(-out // n), k * n
+    lwes = rows * out
+    products = lwes * chunks * (k + 1) * n_pr * n * OPS_MULMOD + lwes * (chunks - 1) * (k + 1) * n_pr * n * OPS_ADDMOD
+    masks = ntt_ops(lwes * k, n_pr, n) + lwes * k * n * OPS_GARNER
+    body = lwes * n_pr * n * OPS_MULMOD + lwes * OPS_GARNER
+    digit_rows = rows * out_chunks * n_in * ks_level
+    keyswitch = (lwes * n_in * ks_level * DECOMPOSE_OPS + ntt_ops(digit_rows, n_pr, n)
+                 + digit_rows * (k + 1) * n_pr * n * (OPS_MULMOD + OPS_ADDMOD)
+                 + ntt_ops(rows * out_chunks * (k + 1), n_pr, n) + rows * out_chunks * (k + 1) * n * OPS_GARNER)
+    switch = rows * out_chunks * (k + 1) * n * OPS_ADDMOD
+    return ntt_ops(rows * chunks * (k + 1), n_pr, n) + products + masks + body + keyswitch + switch
+
+
+def matmul_bytes(rows: int, inner: int, out: int, k: int, n_pr: int, n: int, ks_level: int) -> int:
+    """Each read or written once: the input GLWEs (u64), the prepared
+    weights and the packing key in the transform domain (value and Shoup
+    companion, 4 bytes each), the stored outputs (4 bytes a coefficient)."""
+    chunks, out_chunks = -(-inner // n), -(-out // n)
+    inputs = rows * chunks * (k + 1) * n * 8
+    weights = out * chunks * n_pr * 2 * n * 4
+    key = k * n * ks_level * (k + 1) * n_pr * 2 * n * 4
+    return inputs + weights + key + rows * out_chunks * (k + 1) * n * 4
+
+
+def matmul_bound_s(rows: int, inner: int, out: int, k: int, n_pr: int, n: int, ks_level: int) -> float:
+    shape = (rows, inner, out, k, n_pr, n, ks_level)
+    return bound_s(matmul_bytes(*shape), matmul_ops(*shape))
 
 
 def cmux_ops(batch: int, steps: int, n_pr: int, n: int) -> float:

@@ -37,6 +37,11 @@ def _env(tmp_path_factory):
     os.environ["TFHE_TPU_KEY_CACHE_DIR"] = str(tmp_path_factory.mktemp("keys"))
 
 
+# the toy matmul cell's limits: it reads err_bits ~42 (the switch to 2^26 at
+# N = 256) and gap_bits 0 or 38 (one output unit); its controls read ~63
+MATMUL_LIMITS = {"err_bits": 46.0, "gap_bits": 42.0, "wrong_outputs": 0}
+
+
 def toy_cell(config: str, traffic: str, limits: dict, per_layer=()):
     """A cell at a toy size, for runs on the CPU."""
     from benchmark import harness

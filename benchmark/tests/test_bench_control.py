@@ -9,6 +9,9 @@ correct.
   less drastic step, which raises the output noise and still decrypts
   most balances, so that the ERC20 cells' `noise_bits` limit, and not
   only `wrong`, has to catch it.
+- matmul `float32`: the plain GLWE matmul (`reference/glwe_matmul`), its
+  one-to-many and keyswitch products in float32, in place of the program's
+  `matrix_multiplication`.
 
 On the CPU at a toy size; on the card (`-m card`) at each cell's own size,
 on three seeds, through the whole harness with a short window (one batch
@@ -23,8 +26,9 @@ import pytest
 import torch
 
 from benchmark import harness
+from benchmark.reference import glwe_matmul as rm
 from benchmark.reference import tfhe as rt
-from benchmark.tests.conftest import ROOT, toy_cell
+from benchmark.tests.conftest import MATMUL_LIMITS, ROOT, toy_cell
 
 TOY_LIMITS = {"wrong": 0, "gap_bits": 52.0, "noise_bits": 56.0}
 SEEDS = (2**31 + 101, 2**31 + 202, 2**31 + 303)
@@ -90,9 +94,10 @@ def test_held_at():
     assert held_at(x, 8).tolist() == [0x0100000000000000, 0, 1 << 62]
 
 
-def _in_place_for_window(monkeypatch, cell, seed, device, control):
+def _from_window(monkeypatch, install):
     """The program serves set-up (the ERC20 cells' inputs, zero and warm-up
-    request); the control takes its place from the window's start."""
+    request; the matmul's keys, weights and warm-up); `install(state)` puts
+    the control in its place from the window's start."""
     load = harness._module
 
     def module(path):
@@ -101,13 +106,48 @@ def _in_place_for_window(monkeypatch, cell, seed, device, control):
             window = m.window
 
             def controlled(st, seconds):
-                _in_place(monkeypatch, cell, seed, device, *CONTROLS[control])
+                install(st)
                 return window(st, seconds)
 
             m.window = controlled
         return m
 
     monkeypatch.setattr(harness, "_module", module)
+
+
+def _in_place_for_window(monkeypatch, cell, seed, device, control):
+    _from_window(monkeypatch, lambda st: _in_place(monkeypatch, cell, seed, device, *CONTROLS[control]))
+
+
+def _matmul_in_place(monkeypatch, cell, seed, device, layers, dtype):
+    """The plain matmul in `dtype` (TF32 off), with the keys it works out
+    from the seed, over the program's `matrix_multiplication`: each call
+    takes the clear weights of the layer whose prepared matrix it is given."""
+    from tfhe_tpu_torch.models import glwe_matmul as gm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = rm.Params.from_config(cell.config)
+    keys = rm.keygen(p, seed, device)
+    clear_of = {id(layer.prepared): layer.weights for layer in layers}
+
+    def matrix_multiplication(enc, clear, pkey):
+        weights = clear_of[id(clear)]
+        data = rm.matmul(p, keys, enc.glwes, weights, dtype).to(torch.int32)
+        return gm.CompressedResultMatrix(data=data, params=enc.params, shape=(enc.shape[0], weights.shape[1]),
+                                         n_bits_out=p.ct_modulus_out_bits)
+
+    monkeypatch.setattr(gm, "matrix_multiplication", matrix_multiplication)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_matmul_control_is_not_correct_toy(monkeypatch, dtype):
+    """The reference in float64 in the program's place passes; in float32
+    it does not."""
+    cell = toy_cell("toy_matmul", "toy_matmul_mix", MATMUL_LIMITS)
+    seed = SEEDS[2]
+    _from_window(monkeypatch, lambda st: _matmul_in_place(monkeypatch, cell, seed, "cpu", st.layers, dtype))
+    res = harness.execute(ROOT, cell.name, seed, 0.2, False, "cpu", time.perf_counter(), cell)
+    assert res["correct"] == (dtype == torch.float64), res["checks"]
 
 
 @pytest.mark.card
@@ -122,4 +162,18 @@ def test_control_at_cell_size(card, monkeypatch, workload, control, seed):
     res = harness.execute(ROOT, workload, seed, 0.1, False, card, t0, cell)
     print(json.dumps({"workload": workload, "control": control, "seed": seed, "checks": res["checks"],
                       "seconds": time.perf_counter() - t0}))
+    assert not res["correct"]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed", SEEDS)
+def test_matmul_control_at_cell_size(card, monkeypatch, seed):
+    cell = harness.load_cell(ROOT, "ml_matmul_8b")
+    harness.prepare_env(ROOT, cell.config)
+    _from_window(monkeypatch, lambda st: _matmul_in_place(monkeypatch, cell, seed, card, st.layers, torch.float32))
+    t0 = time.perf_counter()
+    res = harness.execute(ROOT, cell.name, seed, 3.0, False, card, t0, cell)
+    print(json.dumps({"workload": cell.name, "control": "float32", "seed": seed, "checks": res["checks"],
+                      "attempted": res["attempted"], "seconds": time.perf_counter() - t0}))
+    assert res["attempted"] >= len(cell.traffic["layers"])  # every layer served by the control
     assert not res["correct"]

@@ -49,11 +49,11 @@ def test_run_loads_no_jax_module():
         "import sys; sys.path.insert(0, %r)\n"
         "from pathlib import Path\n"
         "from benchmark import harness, system, roofline, trace\n"
-        "from benchmark.reference import tfhe, rng, erc20\n"
+        "from benchmark.reference import tfhe, rng, erc20, glwe_matmul\n"
         "for d in ('generators', 'metrics'):\n"
         "    for p in sorted((Path(%r) / d).glob('*.py')): harness._module(p)\n"
         "import tfhe_tpu_torch.api.instance, tfhe_tpu_torch.api.serve, tfhe_tpu_torch.api.client\n"
-        "import tfhe_tpu_torch.models.shortint, tfhe_tpu_torch.models.integer\n"
+        "import tfhe_tpu_torch.models.shortint, tfhe_tpu_torch.models.integer, tfhe_tpu_torch.models.glwe_matmul\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & %r))\n"
     ) % (str(ROOT), str(BENCH), FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)

@@ -4,8 +4,7 @@
 two and leaves the roofline out (no launch on a card); the window
 roofline equals `k4_roofline` where every launch has one batch size and
 reads lower over mixed batches; a program without the spans and
-counters they read (an older checkout) leaves all three out instead of
-refusing the run."""
+counters they read (a renamed counter) refuses the run."""
 
 import json
 import time
@@ -67,17 +66,19 @@ def test_window_roofline_is_k4_roofline_at_one_batch_and_low_over_mixed_batches(
     assert window.read(_run(config, mixed, 3.0)) < 100.0 * each / 3.0
 
 
-def test_a_program_without_spans_leaves_the_new_metrics_out(monkeypatch):
+def test_a_program_without_the_counters_refuses_the_run(monkeypatch):
     from tfhe_tpu_torch.models import shortint
     from tfhe_tpu_torch.ops import multibit_cuda
     from tfhe_tpu_torch.utils import profiling
 
+    from benchmark import system
+
     monkeypatch.delattr(profiling, "SPANS")
     monkeypatch.delattr(multibit_cuda.group_steps, "rows")
     monkeypatch.delattr(shortint.generate_lut, "uploads")
-    config = json.loads((ROOT / "benchmark" / "configs" / "fhevm_g3.json").read_text())
-    run = _run(config, [32] * 72, 3.0)
-    run.counters = {"K4": 72}  # what the harness reads from such a program
     for name in NEW:
-        r = harness.reader(name + ".b1")
-        assert r.COUNTERS == {} and r.read(run) is None
+        counters = harness.reader(name + ".b1").COUNTERS
+        assert counters
+        with pytest.raises(harness.Refused):
+            for path in counters.values():
+                system.read_counter(path)

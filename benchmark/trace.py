@@ -47,6 +47,15 @@ class TraceSummary:
         return [[name, s] for name, s in sorted(d.items(), key=lambda kv: -kv[1])[:k]]
 
 
+def share_outside(tr: TraceSummary | None, kernels: tuple) -> float | None:
+    """Device time outside the named kernels as a share (%) of the traced
+    window; None without a trace."""
+    if tr is None or tr.window_s <= 0:
+        return None
+    inside = sum(s for name, s in tr.kernel_s.items() if name in kernels)
+    return 100.0 * (tr.busy_s - inside) / tr.window_s
+
+
 @contextlib.contextmanager
 def traced(out: dict):
     """Profile the block; on exit out["trace"] holds its TraceSummary, or
@@ -60,7 +69,29 @@ def traced(out: dict):
         with torch.profiler.record_function(WINDOW):
             yield
             sync()
-    out["trace"] = summarize(prof.events())
+    out["trace"] = summarize(raw_events(prof))
+
+
+def raw_events(prof) -> list:
+    """(name, on the device, start us, end us) of every event the profiler
+    kept, read from its raw results under the names and with the filter of
+    torch's own event list, which builds a Python object and a call tree for
+    each event: minutes at the million events of a long window."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names, out = {}, []
+    for ev in res.events():
+        raw = ev.name()
+        if _filter_name(raw) or ev.is_hidden_event():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _rewrite_name(raw, with_wildcard=True)
+        on_device = str(ev.device_type()).endswith("CUDA")
+        out.append((name, on_device, (ev.start_ns() - t0) / 1e3, (ev.end_ns() - t0) / 1e3))
+    return out
 
 
 def _merge(intervals: list) -> list:
@@ -85,26 +116,28 @@ def _covering(ranges: list, t: float) -> str | None:
 
 
 def summarize(events) -> TraceSummary | None:
-    window = [ev for ev in events if ev.name == WINDOW and str(ev.device_type).endswith("CPU")]
+    """events: (name, on the device, start us, end us), as `raw_events`
+    gives them."""
+    window = [(s, e) for name, on_device, s, e in events if name == WINDOW and not on_device]
     if len(window) != 1:
         return None
-    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    w0, w1 = window[0]
     dev, host = [], []
     kernel_s, kernel_n = {}, {}
-    for ev in events:
-        if str(ev.device_type).endswith("CUDA"):
+    for name, on_device, start, end in events:
+        if on_device:
             # range annotations also appear on the device timeline
-            if ev.name.startswith(SPAN_PREFIX) or ev.name.startswith("ProfilerStep"):
+            if name.startswith(SPAN_PREFIX) or name.startswith("ProfilerStep"):
                 continue
-            s, e = max(ev.time_range.start, w0), min(ev.time_range.end, w1)
+            s, e = max(start, w0), min(end, w1)
             if e <= s:
                 continue
             dev.append((s, e))
-            name = short(ev.name)
+            name = short(name)
             kernel_s[name] = kernel_s.get(name, 0.0) + (e - s) / 1e6
             kernel_n[name] = kernel_n.get(name, 0) + 1
-        elif ev.name != WINDOW:
-            host.append((ev.time_range.start, ev.time_range.end, ev.name))
+        elif name != WINDOW:
+            host.append((start, end, name))
     if not dev:
         return None
     busy = _merge(dev)
