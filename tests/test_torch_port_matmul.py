@@ -106,10 +106,16 @@ def test_matmul_matches_reference(keys, reference_runs, signed):
     np.testing.assert_array_equal(got, x.astype(np.int64) @ w)
 
 
+@pytest.fixture(scope="module")
+def own_key():
+    """The port's own TOY_MATMUL key (seed 72), made once for the file."""
+    return tgm.create_private_key(tp.TOY_MATMUL, seed=72, device="cpu")
+
+
 @pytest.mark.parametrize("r,c,o,signed", [(2, 16, 3, False), (1, 256, 4, False), (3, 300, 5, True)])
-def test_own_keys_matmul_decrypts(r, c, o, signed):
+def test_own_keys_matmul_decrypts(own_key, r, c, o, signed):
     """The JAX package's own matmul cases, with the port's keys end to end."""
-    key = tgm.create_private_key(tp.TOY_MATMUL, seed=72, device="cpu")
+    key = own_key
     rs = np.random.RandomState(c)
     x = rs.randint(0, 16, size=(r, c)).astype(np.uint64)
     w = rs.randint(-8 if signed else 0, 8, size=(c, o)).astype(np.int64)
@@ -154,10 +160,10 @@ def test_packing_keyswitch_matches_reference(keys):
     assert tkey.pksk.shift == pk.pksk.shift
 
 
-def test_packing_key_own_keygen_layout(keys):
+def test_packing_key_own_keygen_layout(keys, own_key):
     """The port's own packing key has the JAX key's shape, shift and dtype."""
     pk, _ = keys
-    own = tgm.create_private_key(tp.TOY_MATMUL, seed=73, device="cpu")
+    own = own_key
     assert tuple(own.pksk.ksk_ntt.shape) == tuple(pk.pksk.ksk_ntt.shape)
     assert own.pksk.ksk_ntt.dtype == torch.int32
     assert own.pksk.shift == pk.pksk.shift and own.pksk.gadget == tp.TOY_MATMUL.packing_ks

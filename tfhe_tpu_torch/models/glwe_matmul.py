@@ -15,7 +15,11 @@ layers).
     each mask polynomial;
   * the O LWEs of a row pack back into ceil(O/N) GLWEs under the post key
     (core/packing), then switch to the 2^ct_modulus_out_bits storage
-    modulus.
+    modulus;
+  * routed experts (`expert_matmul`, the port's own): rows reach several
+    matrices of one shape through a clear table of (row, expert) pairs,
+    each row transformed once, the pairs in slices of bounded workspace,
+    one packing keyswitch a slice.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from tfhe_tpu_torch.ops.folded_ntt import get_folded_engine
 from tfhe_tpu_torch.params import PARAMS_8B_2048, MatmulParams
 from tfhe_tpu_torch.rng import FheRng
 from tfhe_tpu_torch.torus import mod_switch
+from tfhe_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -167,8 +172,10 @@ def matrix_multiplication(enc: EncryptedMatrix, clear, pkey: MatmulPrivateKey) -
 def _matmul_prepared(
     enc: EncryptedMatrix, prep: PreparedClearMatrix, pkey: MatmulPrivateKey, engine
 ) -> CompressedResultMatrix:
+    # all rows in one pass, the workspace unbounded: in `expert_matmul`'s
+    # 16 GiB slices a Llama-3.2-1B block's 8-row gate, up and down
+    # projections run 2 rows a slice, 4.5 % slower on an H100 (PERF.md)
     p = enc.params
-    n = p.polynomial_size
     c, o = prep.shape
     if c != enc.n_valid:
         raise ValueError(f"inner dimensions differ: {enc.n_valid} encrypted, {c} clear")
@@ -176,8 +183,23 @@ def _matmul_prepared(
     # one-to-many: every ciphertext transformed once (K1), the weights are
     # the fixed operand with the Shoup companions
     f_ct = engine.forward_u64(enc.glwes)  # (R, chunks, k+1, P, N)
-    prod = engine.pointwise_shoup(f_ct[:, None], prep.f_w[None, :, :, None])  # (R, O, chunks, k+1, P, N)
-    f = engine.reduce_u64_domain(prod.to(torch.int64).sum(dim=2))  # (R, O, k+1, P, N)
+    lwes = _extract(_products(engine, f_ct[:, None], prep.f_w), engine)
+    stored = _pack(lwes, pkey, engine, p)
+    return CompressedResultMatrix(data=stored, params=p, shape=(r, o), n_bits_out=p.ct_modulus_out_bits)
+
+
+def _products(engine, f_ct: torch.Tensor, f_w: torch.Tensor) -> torch.Tensor:
+    """Transformed rows (R, 1, chunks, k+1, P, N) times one prepared
+    matrix's f_w (O, chunks, P, 2, N), summed over the chunks: (R, O, k+1,
+    P, N)."""
+    prod = engine.pointwise_shoup(f_ct, f_w[None, :, :, None])  # (R, O, chunks, k+1, P, N)
+    return engine.reduce_u64_domain(prod.to(torch.int64).sum(dim=2))
+
+
+def _extract(f: torch.Tensor, engine) -> torch.Tensor:
+    """Transform-domain products (R, O, k+1, P, N) -> the LWEs of their
+    coefficient N-1 (R, O, kN+1)."""
+    r, o, _, _, n = f.shape
     # the masks need every coefficient (the packing keyswitch decomposes
     # them all); the body only its coefficient N-1
     mask_coeffs = engine.backward(f[..., :-1, :, :])  # (R, O, k, N)
@@ -186,13 +208,113 @@ def _matmul_prepared(
     # mask is each key polynomial reversed, with no negation
     k_dim = mask_coeffs.shape[-2]
     ext = mask_coeffs.flip(-1)
-    lwes = torch.cat([ext.reshape(r, o, k_dim * n), body_n1[..., None]], dim=-1)  # (R, O, kN+1)
-    # pack each row's O LWEs into ceil(O/N) GLWEs under the post key
+    return torch.cat([ext.reshape(r, o, k_dim * n), body_n1[..., None]], dim=-1)
+
+
+def _pack(lwes: torch.Tensor, pkey: MatmulPrivateKey, engine, p: MatmulParams) -> torch.Tensor:
+    """Each row's O LWEs (R, O, kN+1) packed into ceil(O/N) GLWEs under the
+    post key and switched to p's storage modulus: (R, ceil(O/N), k+1, N)
+    int32."""
+    n = p.polynomial_size
+    r, o, _ = lwes.shape
     n_out_chunks = -(-o // n)
     lwes = torch.nn.functional.pad(lwes, (0, 0, 0, n_out_chunks * n - o))
     packed = packing_keyswitch(lwes.reshape(r, n_out_chunks, n, -1), pkey.pksk, engine)
-    stored = _u64.to_i32(mod_switch(packed, p.ct_modulus_out_bits))
-    return CompressedResultMatrix(data=stored, params=p, shape=(r, o), n_bits_out=p.ct_modulus_out_bits)
+    return _u64.to_i32(mod_switch(packed, p.ct_modulus_out_bits))
+
+
+# -- routed experts -------------------------------------------------------------
+
+WORKSPACE_BYTES = 16 << 30  # expert_matmul's bound on a slice's workspace
+PRODUCT_WORD_BYTES = 64  # workspace a transform-domain word of the one-to-many product takes at its peak
+
+
+def pair_bytes(prep: PreparedClearMatrix, engine) -> int:
+    """The workspace one (row, expert) pair takes in `expert_matmul`: the
+    one-to-many product over its chunks at its peak, the largest step."""
+    c, o = prep.shape
+    n = prep.params.polynomial_size
+    k1 = prep.params.glwe_dimension + 1
+    return o * -(-c // n) * k1 * engine.n_primes * n * PRODUCT_WORD_BYTES
+
+
+@span("expert.route")
+def _route(routing, n_rows: int, n_experts: int, per_slice: int) -> tuple:
+    """The clear routing table (pairs, 2) of (row, expert) -> the rows to
+    transform, and the pairs grouped by expert in slices of at most
+    `per_slice`: for each slice its range of the grouped order and its
+    runs (expert, start, end) of one expert."""
+    table = torch.as_tensor(routing, dtype=torch.int64, device="cpu").reshape(-1, 2)
+    rows, which = table[:, 0], table[:, 1]
+    if len(table) and not (0 <= int(rows.min()) and int(rows.max()) < n_rows):
+        raise ValueError(f"routing names a row outside the {n_rows} encrypted rows")
+    if len(table) and not (0 <= int(which.min()) and int(which.max()) < n_experts):
+        raise ValueError(f"routing names an expert outside the {n_experts} held")
+    order = torch.argsort(which, stable=True)  # each expert's pairs in the routing's order
+    used, row_of = torch.unique(rows, return_inverse=True)  # each routed row once
+    grouped = which[order].tolist()
+    slices = []
+    for lo in range(0, len(grouped), per_slice):
+        hi = min(lo + per_slice, len(grouped))
+        runs, start = [], lo
+        for i in range(lo + 1, hi + 1):
+            if i == hi or grouped[i] != grouped[start]:
+                runs.append((grouped[start], start - lo, i - lo))
+                start = i
+        slices.append((lo, hi, runs))
+    return used, row_of[order], torch.argsort(order), slices
+
+
+def expert_matmul(enc: EncryptedMatrix, experts, routing, pkey: MatmulPrivateKey) -> CompressedResultMatrix:
+    """Routed, grouped encrypted x clear matmul: the rows of `enc` (R, C)
+    reach the held experts' prepared matrices `experts` (each (C, O), all of
+    one shape) through the clear `routing` table of (row, expert index)
+    pairs. Returns one compressed result row per pair, (pairs, O), in the
+    routing's order; each bit-identical to `matrix_multiplication` of that
+    expert on its rows, however the pairs are sliced.
+
+    Each routed row is transformed once (K1), however many of its experts
+    are held; an expert with no pairs costs nothing. The pairs, grouped by
+    expert, run in slices whose workspace (`pair_bytes` each) stays under
+    WORKSPACE_BYTES whatever the loads; a slice's products are extracted
+    together and packed under one packing keyswitch."""
+    p = enc.params
+    n = p.polynomial_size
+    experts = list(experts)
+    if not experts or any(e.shape != experts[0].shape for e in experts):
+        raise ValueError("expert_matmul takes one or more prepared matrices of one shape")
+    c, o = experts[0].shape
+    if c != enc.n_valid:
+        raise ValueError(f"inner dimensions differ: {enc.n_valid} encrypted, {c} clear")
+    dev = enc.glwes.device
+    engine = get_folded_engine(n, device=dev)
+    per_slice = max(1, WORKSPACE_BYTES // pair_bytes(experts[0], engine))
+    used, rows, back, slices = _route(routing, enc.shape[0], len(experts), per_slice)
+    n_pairs = len(back)
+    out = torch.empty((n_pairs, -(-o // n), p.glwe_dimension + 1, n), dtype=torch.int32, device=dev)
+    if n_pairs:
+        # the gather indices in one copy to the card a call
+        used, rows, back = torch.cat([used, rows, back]).to(dev).split([len(used), n_pairs, n_pairs])
+        with span("expert.products"):
+            f_ct = engine.forward_u64(enc.glwes[used])[:, None]  # (rows, 1, chunks, k+1, P, N)
+        for lo, hi, runs in slices:
+            with span("expert.products"):
+                seg = rows[lo:hi]
+                f = torch.cat([_products(engine, f_ct[seg[a:b]], experts[e].f_w) for e, a, b in runs])
+                lwes = _extract(f, engine)
+                del f  # before the keyswitch's workspace
+            with span("expert.keyswitch"):
+                out[lo:hi] = _pack(lwes, pkey, engine, p)
+        out = out[back]
+    expert_matmul.calls += 1
+    expert_matmul.pairs += n_pairs
+    expert_matmul.slices += len(slices)
+    return CompressedResultMatrix(data=out, params=p, shape=(n_pairs, o), n_bits_out=p.ct_modulus_out_bits)
+
+
+expert_matmul.calls = 0  # grouped calls
+expert_matmul.pairs = 0  # (row, expert) pairs over all calls
+expert_matmul.slices = 0  # slices over all calls, each one packing keyswitch
 
 
 def decrypt_matrix(result: CompressedResultMatrix, pkey: MatmulPrivateKey) -> torch.Tensor:

@@ -82,9 +82,9 @@ class Timings:
 
 # -- spans ----------------------------------------------------------------------
 
-# the layers of the /evaluate path, outside in; a span's layer is the first
-# component of its name
-LAYERS = ("client", "api", "instance", "integer", "pbs", "wait")
+# the layers of the /evaluate path, outside in, then the GLWE matmul's routed
+# experts; a span's layer is the first component of its name
+LAYERS = ("client", "api", "instance", "integer", "pbs", "wait", "expert")
 REQUEST_MARK = "request "  # the range that opens a request: "request <id>"
 
 
